@@ -5,22 +5,32 @@
 
 Phases, each of which raises (and so exits non-zero) on a failed check:
 
-1. device and build: the card's name and power limit, then both CUDA
-   kernels built from ``kubetorch_tpu_torch/csrc`` with nvcc for sm_90a;
+1. device and build: the card's name and power limit, then every CUDA
+   kernel built from ``kubetorch_tpu_torch/csrc`` with nvcc for sm_90a (one
+   nvcc per source, all started together);
 2. each kernel against its plain PyTorch version at the main path's
-   shapes, timed beside its bound and one PyTorch library call;
+   shapes, timed beside its bound and one PyTorch library call: int8
+   matmul, flash forward, and the two flash backward kernels (dq, dk/dv)
+   at the training shape, incl. a strided layout;
 3. ``Generator`` on Llama-3-8B at full width and depth (int8 weights in the
    fused serving layout, random from a seed): 8 ragged prompts of up to 128
    tokens, 32 greedy tokens, with the bf16 and the int8 KV cache; every
    decode projection must go through the int8 kernel;
 4. ``Embedder`` on the same weights: 2 prompts of 1500 and 2048 tokens,
-   which pad to S = 2048 and take the flash kernel in all 32 layers.
+   which pad to S = 2048 and take the flash kernel in all 32 layers;
+5. ``Trainer`` on Llama-3 1B at full width (the JAX package's largest
+   single-chip training fit: remat "dots_no_mlp", cross-entropy chunks of
+   4096, AdamW), B = 4, S = 2048 batches from ``lm_batches`` over a random
+   corpus: 2 warm-up and 5 timed steps, then 3 steps on fresh batches;
+   exactly 16 dq and 16 dk/dv launches per step, finite losses, every
+   block's gradients held against the plain-attention block, and one
+   profiled step.
 
 The line before the last holds the kernels' numbers as JSON; the last line
-is ``{"ok": true, "device": {...}}``. Details go to ``chip_smoke.json``
-and ``decode_profile.txt`` in ``--out`` (default ``smoke_out/`` beside this
-script). Needs one CUDA card; exits non-zero and prints no result without
-one. Imports nothing of JAX.
+is ``{"ok": true, "device": {...}}``. Details go to ``chip_smoke.json``,
+``decode_profile.txt`` and ``train_profile.txt`` in ``--out`` (default
+``smoke_out/`` beside this script). Needs one CUDA card; exits non-zero and
+prints no result without one. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -196,6 +207,103 @@ def check_flash(dev):
             f"{lse_err:.3g} kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
             f"library {l_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
     return rows
+
+
+def flash_bwd_flops(B, S, Hq, D, causal):
+    """(dq, dk/dv) tensor-core flops: 3 and 4 products of 2·D flops per
+    (query head, query, live key)."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    per = 2.0 * B * Hq * D * pairs
+    return 3 * per, 4 * per
+
+
+def bwd_close(got, want):
+    """The kernels round p and ds to bf16 before their products and write
+    bf16; the plain version keeps f32 until its one final rounding: held to
+    2e-2 of the gradient's norm and 5e-2 of its largest element."""
+    got, want = got.float(), want.float()
+    rel = ((got - want).norm() / want.norm()).item()
+    err = (got - want).abs().max().item()
+    if not (rel < 2e-2 and err <= 5e-2 * want.abs().max().item()):
+        raise AssertionError(f"flash backward kernel vs plain: relative "
+                             f"L2 {rel}, max abs {err}")
+    return err, rel
+
+
+def check_flash_backward(dev, B=4, S=2048, Hq=16, Hkv=8):
+    """dq and dk/dv against the plain backward at the training shape (B = 4,
+    S = 2048, 16/8 heads, D = 128), causal and not, plus a strided case."""
+    from kubetorch_tpu_torch.ops import flash_attention as fa
+    import torch.nn.functional as F
+
+    D = 128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    q, k, v, g = rnd(B, S, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D), \
+        rnd(B, S, Hq, D)
+    scale = D ** -0.5
+    rows = []
+    for causal in (True, False):
+        out, lse = fa.flash_forward(q, k, v, scale=scale, causal=causal)
+        delta = fa.flash_bwd_delta(g, out)
+        got = fa.flash_backward(q, k, v, out, lse, g, scale=scale,
+                                causal=causal)
+        want = fa.flash_backward_plain(q, k, v, out, lse, g, scale=scale,
+                                       causal=causal)
+        torch.cuda.synchronize()
+        errs = [bwd_close(a, b) for a, b in zip(got, want)]
+        del got, want
+        dq_ms = time_ms(lambda: fa._bwd_dq(q, k, v, g, lse, delta, scale,
+                                           causal))
+        dkv_ms = time_ms(lambda: fa._bwd_dkv(q, k, v, g, lse, delta, scale,
+                                             causal))
+        p_ms = time_ms(lambda: fa.flash_backward_plain(
+            q, k, v, out, lse, g, scale=scale, causal=causal), reps=3,
+            warmup=1)
+        # library yardstick: SDPA's backward yields dq, dk and dv together
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                            enable_gqa=True)
+        gt = g.transpose(1, 2).contiguous()
+        l_ms = time_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), gt, retain_graph=True))
+        del qt, kt, vt, ot, gt
+        f_dq, f_dkv = flash_bwd_flops(B, S, Hq, D, causal)
+        io = 2 * (2 * q.numel() + k.numel() + v.numel()) + 2 * 4 * lse.numel()
+        b_dq = bound_ms(io + 2 * q.numel(), f_dq)
+        b_dkv = bound_ms(io + 2 * (k.numel() + v.numel()), f_dkv)
+        row = {"causal": causal, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv,
+               "D": D, "max_abs_err": max(e for e, _ in errs),
+               "rel_l2_err": {n: r for n, (_, r) in
+                              zip(("dq", "dk", "dv"), errs)},
+               "dq_ms": dq_ms, "dkv_ms": dkv_ms, "plain_ms": p_ms,
+               "library_ms": l_ms, "dq_bound_ms": b_dq[0],
+               "dq_bound_by": b_dq[1], "dkv_bound_ms": b_dkv[0],
+               "dkv_bound_by": b_dkv[1]}
+        rows.append(row)
+        log(f"flash_backward causal={causal}: err {row['max_abs_err']:.3g} "
+            f"(rel L2 dq {errs[0][1]:.3g} dk {errs[1][1]:.3g} dv "
+            f"{errs[2][1]:.3g}); dq {dq_ms:.4f} ms (bound {b_dq[0]:.4f}), "
+            f"dk/dv {dkv_ms:.4f} ms (bound {b_dkv[0]:.4f}), plain "
+            f"{p_ms:.3f} ms, library (SDPA backward) {l_ms:.4f} ms")
+    # q/k/v as column slices of one fused projection, dO a slice of a wider
+    # tensor: the kernels read them through their strides
+    qkv = rnd(2, min(S, 512), Hq + 2 * Hkv, D)
+    sq, sk, sv = qkv.split([Hq, Hkv, Hkv], dim=2)
+    sg = rnd(2, min(S, 512), Hq + 2, D)[:, :, 1:Hq + 1]
+    out, lse = fa.flash_forward(sq, sk, sv, scale=scale, causal=True)
+    got = fa.flash_backward(sq, sk, sv, out, lse, sg, scale=scale,
+                            causal=True)
+    want = fa.flash_backward_plain(sq, sk, sv, out, lse, sg, scale=scale,
+                                   causal=True)
+    strided = [bwd_close(a, b)[1] for a, b in zip(got, want)]
+    log(f"flash_backward strided layout: rel L2 {max(strided):.3g}")
+    return rows, {"strided_rel_l2_max": max(strided)}
 
 
 # --------------------------------------------------------------------------
@@ -395,6 +503,18 @@ def check_embed_blocks(params, cfg, dev, prompts):
     return {"block_rel_err_max": worst, "cos_vs_plain": cos_sim.tolist()}
 
 
+def device_kernels(ka):
+    """(name, device ms, count) of every kernel in a profile, longest first.
+    GPU user annotations (``Optimizer.step#...``) span kernels that are
+    listed on their own, so they are left out of the sum."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in ka if e.device_type == cuda
+                   and not getattr(e, "is_user_annotation", False)
+                   and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+
+
 def profile_decode(params, cfg, dev, prompts, out_dir, n_steps=8):
     """One profiled window of greedy decode steps (bf16 cache): wall time,
     the device's busy and idle share, and where host and device time go."""
@@ -422,11 +542,8 @@ def profile_decode(params, cfg, dev, prompts, out_dir, n_steps=8):
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
     ka = prof.key_averages()
+    kernels = device_kernels(ka)
     cuda = torch.autograd.DeviceType.CUDA
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                      for e in ka if e.device_type == cuda
-                      and e.self_device_time_total > 0),
-                     key=lambda r: -r[1])
     host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
                    for e in ka if e.device_type != cuda),
                   key=lambda r: -r[1])
@@ -486,6 +603,157 @@ def run_embedder(params, cfg, dev, prompts):
 
 
 # --------------------------------------------------------------------------
+# phase 5: Trainer
+# --------------------------------------------------------------------------
+
+def train_flops_per_token(cfg, seq: int) -> float:
+    """Matmul model-flops per token, forward and backward (the JAX package's
+    bench.py count): 6·N over the non-embedding-lookup params plus causal
+    attention's 6·L·S·H·D."""
+    from kubetorch_tpu_torch.models import llama
+
+    n = llama.num_params(cfg)
+    if not cfg.tie_embeddings:
+        n -= cfg.vocab_size * cfg.embed_dim
+    return 6 * n + 6 * cfg.n_layers * seq * cfg.n_heads * cfg.head_dim
+
+
+def check_train_blocks(params, cfg, dev, tokens):
+    """Every block's gradients (its input's and its weights') with the flash
+    kernels held against the same block with plain f32 attention, on the
+    kernel path's activations (layer 0 takes the embedded batch) and one
+    seeded output cotangent. The kernels round p and ds to bf16, the plain
+    path keeps them in f32: a few 1e-3 of each gradient's norm; the bound
+    is 5e-2 relative L2."""
+    from kubetorch_tpu_torch.models import llama
+
+    plain_cfg = dataclasses.replace(cfg, attn_impl="xla")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    with torch.no_grad():
+        x = params["embedding"][tokens].to(cfg.compute_dtype)
+        pos = torch.arange(tokens.shape[1], device=dev)[None, :]
+        sin, cos = llama.rope_angles(pos, cfg.head_dim, cfg.rope_theta)
+    worst = {}
+    for li, layer in enumerate(llama._layer_slices(params["layers"],
+                                                   cfg.n_layers)):
+        gy = torch.randn(x.shape, generator=gen, device=dev,
+                         dtype=x.dtype)
+        grads = []
+        for c in (cfg, plain_cfg):
+            w = {k: t.detach().requires_grad_() for k, t in layer.items()}
+            xin = x.detach().requires_grad_()
+            y = llama._block(xin, w, sin, cos, c)
+            names = ["x"] + sorted(w)
+            gs = torch.autograd.grad(y, [xin] + [w[n] for n in names[1:]],
+                                     gy)
+            grads.append((y.detach(), dict(zip(names, gs))))
+        (y, got), (_, want) = grads
+        for name in want:
+            rel = ((got[name].float() - want[name].float()).norm()
+                   / want[name].float().norm()).item()
+            worst[name] = max(worst.get(name, 0.0), rel)
+            if not np.isfinite(rel) or rel > 5e-2:
+                raise AssertionError(f"layer {li}: d{name} with the flash "
+                                     f"kernels vs plain attention: relative "
+                                     f"L2 {rel} > 5e-2")
+        x = y
+        del grads, got, want
+    return worst
+
+
+def profile_train_step(trainer, batch, out_dir):
+    """One profiled training step: wall time, the device's busy and idle
+    share, and where device time goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(trainer.step(batch)["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ka = prof.key_averages()
+    kernels = device_kernels(ka)
+    busy_ms = sum(r[1] for r in kernels)
+    with open(os.path.join(out_dir, "train_profile.txt"), "w") as f:
+        f.write(ka.table(sort_by="self_device_time_total", row_limit=50))
+    res = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+           "top_kernels_ms": [(k, t, c) for k, t, c in kernels[:10]]}
+    log(f"train step profile: {wall_ms:.1f} ms wall, device busy "
+        f"{busy_ms:.1f} ms, idle share {res['device_idle_share']}")
+    for k, t, c in res["top_kernels_ms"]:
+        log(f"  device {t:9.3f} ms x{c:<5d} {k[:90]}")
+    return res
+
+
+def run_training(dev, out_dir, cfg=None, B=4, S=2048):
+    from kubetorch_tpu_torch.models import LlamaConfig
+    from kubetorch_tpu_torch.ops import flash_attention as fa
+    from kubetorch_tpu_torch.training import Trainer, lm_batches
+
+    cfg = cfg or LlamaConfig.llama3_1b(remat=True, remat_policy="dots_no_mlp",
+                                       xent_chunk=4096)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, optimizer=functools.partial(
+        torch.optim.AdamW, lr=1e-4, weight_decay=1e-4), seed=SEED,
+        device=dev)
+    torch.cuda.synchronize()
+    log(f"trainer ({cfg.embed_dim} wide, {cfg.n_layers} layers) made in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    corpus = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, 4_000_000).astype(np.int32)
+    batches = lm_batches(corpus, B, S, seed=SEED)
+    batch = next(batches)
+
+    # "dots_no_mlp" checkpoints the attention, so its backward re-runs the
+    # flash forward: 2 forward launches per layer per step
+    per_step = {"dq": cfg.n_layers, "dkv": cfg.n_layers,
+                "fwd": 2 * cfg.n_layers}
+    n_warm, n_timed = 2, 5
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.flash_forward.launches = 0
+    fa.flash_backward.dq_launches = fa.flash_backward.dkv_launches = 0
+    bench = trainer.benchmark(batch, n_steps=n_timed, warmup=n_warm)
+    launches = {"dq": fa.flash_backward.dq_launches,
+                "dkv": fa.flash_backward.dkv_launches,
+                "fwd": fa.flash_forward.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_steps = n_warm + n_timed
+    if launches != {k: n * n_steps for k, n in per_step.items()}:
+        raise AssertionError(f"{n_steps} training steps launched {launches},"
+                             f" expected {per_step} per step")
+    losses = [bench["loss"]]
+    for _ in range(3):
+        losses.append(float(trainer.step(next(batches))["loss"]))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"training losses {losses}")
+    step_s = bench["step_time_s"]
+    flops_tok = train_flops_per_token(cfg, S)
+    mfu = bench["tokens_per_sec"] * flops_tok / BF16_FLOPS
+    blocks = check_train_blocks(trainer.state["params"], cfg, dev,
+                                torch.as_tensor(batch["inputs"], device=dev))
+    prof = profile_train_step(trainer, batch, out_dir)
+    res = {"config": (f"d{cfg.embed_dim} L{cfg.n_layers} remat="
+                      f"{cfg.remat_policy} xent_chunk={cfg.xent_chunk}"),
+           "batch": B, "seq": S, "optimizer": "AdamW(lr=1e-4, wd=1e-4)",
+           "step_ms": step_s * 1e3, "tokens_per_s": bench["tokens_per_sec"],
+           "flops_per_token": flops_tok, "mfu": mfu,
+           "peak_mem_gib": peak / 2 ** 30, "losses": losses,
+           "launches": launches, "launches_per_step": per_step,
+           "block_grad_rel_l2_max": blocks, "profile": prof}
+    log(f"Trainer {res['config']} B={B} S={S}: {res['step_ms']:.1f} ms/step, "
+        f"{res['tokens_per_s']:.0f} tok/s, MFU {mfu:.3f} (989 TFLOP/s), "
+        f"peak {res['peak_mem_gib']:.2f} GiB, losses "
+        f"{[round(x, 4) for x in losses]}, launches {launches}; block grads "
+        f"vs plain attention: worst {max(blocks.values()):.3g}")
+    return res
+
+
+# --------------------------------------------------------------------------
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -521,6 +789,7 @@ def main() -> int:
     # 2. kernels against plain versions
     int8_rows = check_int8_matmul(dev, cfg)
     flash_rows = check_flash(dev)
+    bwd_rows, bwd_strided = check_flash_backward(dev)
     torch.cuda.empty_cache()
 
     # 3. Generator at full width and depth
@@ -541,6 +810,11 @@ def main() -> int:
     eprompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
                 for n in (1500, 2048)]
     emb_row = run_embedder(unfused_view(params, cfg), cfg, dev, eprompts)
+    del params
+    torch.cuda.empty_cache()
+
+    # 5. Trainer on Llama-3 1B at full width
+    train_row = run_training(dev, out_dir)
 
     decode_rows = [r for r in int8_rows if r["B"] == 8]
 
@@ -569,16 +843,35 @@ def main() -> int:
          "bound_ms": causal["bound_ms"], "bound_by": causal["bound_by"],
          "library_ms": causal["library_ms"]},
     ]
+    bwd = next(r for r in bwd_rows if r["causal"])
+    for name, key, line in (("flash_backward_dq", "dq", 173),
+                            ("flash_backward_dkv", "dkv", 218)):
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "kubetorch_tpu_torch/csrc/flash_bwd.cu",
+             "replaces": f"kubetorch_tpu/ops/flash_attention.py:{line}",
+             "launches": train_row["launches"][key],
+             "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+             "ms": bwd[f"{key}_ms"], "plain_ms": bwd["plain_ms"],
+             "bound_ms": bwd[f"{key}_bound_ms"],
+             "bound_by": bwd[f"{key}_bound_by"],
+             "library_ms": bwd["library_ms"]})
     detail = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "int8_matmul": int8_rows, "flash_forward": flash_rows,
               "generator": gen_rows, "decode_profile": decode_prof,
               "embedder": emb_row,
+              "flash_backward": bwd_rows,
+              "flash_backward_strided": bwd_strided, "trainer": train_row,
               "kernels": kernels,
               "note": ("int8_matmul ms/plain_ms/library_ms/bound_ms: sum "
                        "over one decode layer's four fused projections at "
                        "B=8; flash_forward: causal, B=2 S=2048 Hq=32 Hkv=8 "
-                       "D=128")}
+                       "D=128; flash_backward_dq/dkv: causal, B=4 S=2048 "
+                       "Hq=16 Hkv=8 D=128, plain_ms is the plain backward "
+                       "(dq, dk and dv together) and library_ms SDPA's "
+                       "backward, which also yields all three; launches "
+                       "are over the 7 benchmarked training steps")}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1)
 

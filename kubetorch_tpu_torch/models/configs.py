@@ -40,9 +40,9 @@ class MoEConfig:
 class LlamaConfig:
     """Llama-3-style decoder-only transformer (GQA + RoPE + SwiGLU).
 
-    Fields match the JAX config one for one. ``remat``, ``remat_policy`` and
-    ``xent_chunk`` are training settings, carried for parity and unused by
-    the serving path ported here.
+    Fields match the JAX config one for one. ``remat`` and ``remat_policy``
+    apply to ``llama.hidden_states`` under autograd, ``xent_chunk`` to the
+    training loss (``training.make_default_loss``).
     """
 
     vocab_size: int = 128256

@@ -1,5 +1,4 @@
-"""Llama-3-style decoder, inference half (port of
-``kubetorch_tpu/models/llama.py``).
+"""Llama-3-style decoder (port of ``kubetorch_tpu/models/llama.py``).
 
 Plain functions over a params dict keyed exactly like the JAX tree: every
 per-layer weight keeps its leading ``[n_layers, ...]`` dim, and a Python
@@ -15,8 +14,15 @@ D % 128 == 0).
 The KV cache of :func:`forward_cached` is updated **in place**: the cache
 dict passed in is the one returned, its tensors written at ``write_at``.
 
-Not ported yet: training (remat, ``forward_pipeline``, ring attention),
-MoE, LoRA, and the chunk-mode cache paths of the rolling generator.
+Training: :func:`forward` and :func:`hidden_states` run under autograd;
+gradients reach the stacked ``[L, ...]`` leaves through the per-layer
+views. With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
+(:func:`_block_remat`), saving what the JAX package's ``_remat_policy``
+saves by name (``qkv_q/k/v``, ``attn_out``, ``mlp_out``) and recomputing
+the rest in the backward.
+
+Not ported yet: ``forward_pipeline``, ring attention, MoE, LoRA, and the
+chunk-mode cache paths of the rolling generator.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import Any, Dict, List, Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from kubetorch_tpu_torch._device import resolve_device
 from kubetorch_tpu_torch.models.configs import LlamaConfig
@@ -117,33 +124,45 @@ def _proj(x: torch.Tensor, layer: Params, name: str,
     return x @ _wload(layer, name, dt)
 
 
-def _mlp(x: torch.Tensor, layer: Params, cfg: LlamaConfig) -> torch.Tensor:
-    """SwiGLU sublayer incl. its pre-norm; returns the residual."""
+def _mlp_gate_up(x: torch.Tensor, layer: Params, cfg: LlamaConfig):
+    """The MLP's pre-norm and its gate and up projections."""
     dt = cfg.compute_dtype
     h = rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
     if "wgu" in layer:
         # serving layout: gate and up share one weight stream
-        gate, up = _proj(h, layer, "wgu", dt).chunk(2, dim=-1)
-    else:
-        gate = _proj(h, layer, "w_gate", dt)
-        up = _proj(h, layer, "w_up", dt)
-    return _proj(F.silu(gate) * up, layer, "w_down", dt)
+        return _proj(h, layer, "wgu", dt).chunk(2, dim=-1)
+    return _proj(h, layer, "w_gate", dt), _proj(h, layer, "w_up", dt)
 
 
-def _block(x: torch.Tensor, layer: Params, sin, cos, cfg: LlamaConfig,
-           segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One decoder block. ``x``: [B, S, E] in compute dtype."""
+def _mlp_down(gate, up, layer: Params, cfg: LlamaConfig) -> torch.Tensor:
+    return _proj(F.silu(gate) * up, layer, "w_down", cfg.compute_dtype)
+
+
+def _mlp(x: torch.Tensor, layer: Params, cfg: LlamaConfig) -> torch.Tensor:
+    """SwiGLU sublayer incl. its pre-norm; returns the residual
+    (``mlp_out``)."""
+    gate, up = _mlp_gate_up(x, layer, cfg)
+    return _mlp_down(gate, up, layer, cfg)
+
+
+def _attn_qkv(x: torch.Tensor, layer: Params, cfg: LlamaConfig):
+    """Pre-norm and the q/k/v projections (``qkv_q/k/v``, before RoPE)."""
     dt = cfg.compute_dtype
-    B, S, E = x.shape
+    B, S, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-
     h = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
     q = (h @ _wload(layer, "wq", dt)).reshape(B, S, H, D)
     k = (h @ _wload(layer, "wk", dt)).reshape(B, S, Hkv, D)
     v = (h @ _wload(layer, "wv", dt)).reshape(B, S, Hkv, D)
+    return q, k, v
+
+
+def _attn_core(q, k, v, sin, cos, cfg: LlamaConfig,
+               segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """RoPE and attention → ``attn_out`` [B, S, H*D]."""
+    B, S, H, D = q.shape
     q = apply_rope(q, None, cfg.rope_theta, sin=sin, cos=cos)
     k = apply_rope(k, None, cfg.rope_theta, sin=sin, cos=cos)
-
     impl = cfg.attn_impl
     if impl == "auto":
         impl = "flash" if (S >= 2048 and S % 512 == 0
@@ -153,23 +172,87 @@ def _block(x: torch.Tensor, layer: Params, sin, cos, cfg: LlamaConfig,
     else:
         attn = dot_product_attention(q, k, v, causal=True,
                                      segment_ids=segment_ids)
-    x = x + attn.reshape(B, S, H * D) @ _wload(layer, "wo", dt)
+    return attn.reshape(B, S, H * D)
+
+
+def _block(x: torch.Tensor, layer: Params, sin, cos, cfg: LlamaConfig,
+           segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One decoder block. ``x``: [B, S, E] in compute dtype."""
+    q, k, v = _attn_qkv(x, layer, cfg)
+    attn = _attn_core(q, k, v, sin, cos, cfg, segment_ids)
+    x = x + attn @ _wload(layer, "wo", cfg.compute_dtype)
     return x + _mlp(x, layer, cfg)
+
+
+_REMAT_POLICIES = ("nothing", "dots", "dots_and_attn", "dots_no_mlp")
+
+
+def _ckpt(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _block_remat(x: torch.Tensor, layer: Params, sin, cos, cfg: LlamaConfig,
+                 segment_ids: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """:func:`_block` under ``torch.utils.checkpoint``, saving what the JAX
+    package's ``_remat_policy`` saves (besides the block's input):
+
+    - ``"nothing"``: the whole block recomputes;
+    - ``"dots"``: every projection's output (q, k, v, the ``wo`` output,
+      gate, up, the MLP output); norms, RoPE, attention and ``silu·up``
+      recompute;
+    - ``"dots_and_attn"``: ``"dots"`` plus the attention itself (its
+      autograd residuals, incl. lse), so the backward never re-runs the
+      flash forward;
+    - ``"dots_no_mlp"``: q, k, v, ``attn_out`` and ``mlp_out``; the wide
+      gate/up activations recompute with the whole MLP.
+
+    A checkpointed stage's inputs are what it saves, so the stage
+    boundaries are the saved names. The flash forward runs twice per layer
+    per step under every policy but ``"dots_and_attn"`` (forward and
+    recompute). The residual stream after attention is also saved (one
+    ``[B, S, E]`` per layer) where JAX would recompute it.
+    """
+    policy = cfg.remat_policy
+    if policy not in _REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}; options: "
+                         + ", ".join(repr(p) for p in _REMAT_POLICIES))
+    if policy == "nothing":
+        return _ckpt(_block, x, layer, sin, cos, cfg, segment_ids)
+    dt = cfg.compute_dtype
+    q, k, v = _ckpt(_attn_qkv, x, layer, cfg)
+    if policy == "dots":
+        x = x + _ckpt(lambda q, k, v: _attn_core(q, k, v, sin, cos, cfg,
+                                                 segment_ids)
+                      @ _wload(layer, "wo", dt), q, k, v)
+    else:
+        attn = (_attn_core(q, k, v, sin, cos, cfg, segment_ids)
+                if policy == "dots_and_attn" else
+                _ckpt(_attn_core, q, k, v, sin, cos, cfg, segment_ids))
+        x = x + attn @ _wload(layer, "wo", dt)
+    if policy == "dots_no_mlp":
+        return x + _ckpt(_mlp, x, layer, cfg)
+    gate, up = _ckpt(_mlp_gate_up, x, layer, cfg)
+    return x + _ckpt(_mlp_down, gate, up, layer, cfg)
 
 
 def hidden_states(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
                   segment_ids: Optional[torch.Tensor] = None,
                   positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decoder stack → final-norm hidden states ``[B, S, E]`` (compute
-    dtype)."""
+    dtype). Under autograd with ``cfg.remat`` every block is
+    checkpointed (:func:`_block_remat`)."""
     dt = cfg.compute_dtype
     B, S = tokens.shape
     x = params["embedding"][tokens].to(dt)
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None, :]
     sin, cos = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    block = (_block_remat if cfg.remat and torch.is_grad_enabled()
+             else _block)
     for layer in _layer_slices(params["layers"], cfg.n_layers):
-        x = _block(x, layer, sin, cos, cfg, segment_ids)
+        x = block(x, layer, sin, cos, cfg, segment_ids)
     return rms_norm(x, params["final_norm"], cfg.rms_eps)
 
 

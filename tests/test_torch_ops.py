@@ -201,7 +201,91 @@ def test_flash_untileable_takes_plain_attention():
 
 
 def test_flash_forward_refuses_autograd():
-    q = torch.zeros(1, 64, 2, 128, requires_grad=True)
+    """flash_attention under autograd (its own Function, not a tape through
+    flash_forward): on the CPU its gradient equals the autograd gradient of
+    dot_product_attention on the same inputs (f32 on both sides)."""
+    rng = np.random.default_rng(8)
+    q, k, v, g = (_t(rng.standard_normal(shape).astype(np.float32))
+                  for shape in ((1, 256, 4, 128), (1, 256, 2, 128),
+                                (1, 256, 2, 128), (1, 256, 4, 128)))
+    for causal in (True, False):
+        a = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = t_fa.flash_attention(*a, causal=causal, block_q=128,
+                                   block_k=128)
+        assert out.grad_fn is not None
+        got = torch.autograd.grad(out, a, g)
+        b = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(
+            dot_product_attention(*b, causal=causal), b, g)
+        for x, y in zip(got, want):
+            np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-4,
+                                       atol=1e-5)
+
+
+def _jax_flash_bwd_case(causal, seed):
+    """Inputs and the JAX package's _flash_backward (Pallas, interpret mode,
+    blocks of 128) at B = 1, S = 256, 4/2 heads, D = 128, f32. Returns the
+    [B,S,H,D] numpy inputs, lse [B,H,S], delta [B,H,S] and the JAX (dq, dk,
+    dv) in [B,S,H,D], for an external delta (0.5 · rowsum(dO·O)) and the
+    default one."""
+    rng = np.random.default_rng(seed)
+    B, S, Hq, Hkv, D = 1, 256, 4, 2, 128
+    q = rng.standard_normal((B, S, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    g = rng.standard_normal((B, S, Hq, D)).astype(np.float32)
+    tr = (lambda a: jnp.asarray(a).transpose(0, 2, 1, 3))
+    kw = dict(scale=D ** -0.5, causal=causal, block_q=128, block_k=128,
+              interpret=True)
+    out, lse = j_fa._flash_forward(tr(q), tr(k), tr(v), **kw)
+    delta = j_fa.flash_bwd_delta(tr(g), out)
+    half = delta * 0.5
+    res = {}
+    for name, d in (("default", None), ("external", half)):
+        dq, dk, dv = j_fa._flash_backward(tr(q), tr(k), tr(v), out, lse,
+                                          tr(g), delta=d, **kw)
+        res[name] = [np.array(a.transpose(0, 2, 1, 3)) for a in
+                     (dq, dk, dv)]
+    return ((q, k, v, g, np.array(out.transpose(0, 2, 1, 3))),
+            np.array(lse[..., 0]), np.array(delta[..., 0]),
+            np.array(half[..., 0]), res)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_plain_matches_jax_pallas(causal):
+    """Plain FA2 backward vs the Pallas dq and dk/dv kernels in interpret
+    mode on the same (out, lse), f32: blockwise vs materialized sums of the
+    same f32 terms."""
+    (q, k, v, g, out), lse, delta, half, want = _jax_flash_bwd_case(causal, 9)
+    np.testing.assert_allclose(
+        t_fa.flash_bwd_delta(_t(g), _t(out)).numpy(), delta, rtol=1e-6,
+        atol=1e-6)
+    for name, d in (("default", None), ("external", _t(half))):
+        got = t_fa.flash_backward(_t(q), _t(k), _t(v), _t(out), _t(lse),
+                                  _t(g), scale=128 ** -0.5, causal=causal,
+                                  delta=d)
+        for x, y in zip(got, want[name]):
+            np.testing.assert_allclose(x.numpy(), y, rtol=1e-4, atol=2e-5)
+
+
+def test_flash_backward_checks_shapes_and_counts_no_cpu_launch():
+    q = torch.zeros(1, 64, 2, 128)
     k = torch.zeros(1, 64, 1, 128)
-    with pytest.raises(NotImplementedError, match="backward"):
-        t_fa.flash_forward(q, k, k, scale=1.0, causal=True)
+    lse = torch.zeros(1, 2, 64)
+    before = (t_fa.flash_backward.dq_launches,
+              t_fa.flash_backward.dkv_launches)
+    dq, dk, dv = t_fa.flash_backward(q, k, k, q, lse, q, scale=1.0,
+                                     causal=True)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert (t_fa.flash_backward.dq_launches,
+            t_fa.flash_backward.dkv_launches) == before
+    with pytest.raises(ValueError, match="lse"):
+        t_fa.flash_backward(q, k, k, q, lse[:, :1], q, scale=1.0,
+                            causal=True)
+    with pytest.raises(ValueError, match="dO"):
+        t_fa.flash_backward(q, k, k, q, lse, q[:, :32], scale=1.0,
+                            causal=True)
+    with pytest.raises(ValueError, match="device"):
+        t_fa.flash_backward(q.to("meta"), k.to("meta"), k.to("meta"),
+                            q.to("meta"), lse.to("meta"), q.to("meta"),
+                            scale=1.0, causal=True)

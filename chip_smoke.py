@@ -7,7 +7,10 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 
 1. device and build: the card's name and power limit, then every CUDA
    kernel built from ``kubetorch_tpu_torch/csrc`` with nvcc for sm_90a (one
-   nvcc per source, all started together);
+   nvcc per source, all started together); ptxas's registers and spills,
+   and, where the toolkit has ``cuobjdump``, the Hopper instructions in the
+   SASS (the flash forward and dk/dv kernels must hold wgmma and TMA
+   loads);
 2. each kernel against its plain PyTorch version at the main path's
    shapes, timed beside its bound and one PyTorch library call: int8
    matmul, flash forward, and the two flash backward kernels (dq, dk/dv)
@@ -41,6 +44,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -96,6 +100,42 @@ def bound_ms(nbytes: float, flops: float):
     t_ops = flops / BF16_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+# SASS instructions that show a kernel runs on Hopper's own pipeline:
+# warpgroup MMA and TMA tensor loads
+HOPPER_SASS = ("HGMMA", "UTMALDG")
+# kernels (a substring of the mangled name, in the library of that source)
+# that must hold both
+HOPPER_KERNELS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd": "dkv6kernel"}
+
+
+def sass_counts(build):
+    """{source: {kernel: {instruction: count}}} from ``cuobjdump -sass`` of
+    each built library, or None where the toolkit has no cuobjdump. Raises
+    if a kernel of HOPPER_KERNELS lacks HGMMA or UTMALDG."""
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        log(f"no {cuobjdump}: SASS not inspected")
+        return None
+    counts = {}
+    for name in build.SOURCES:
+        sass = subprocess.run([cuobjdump, "-sass", str(build._lib_path(name))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        counts[name] = {}
+        for block in re.split(r"\n\s*Function : ", sass)[1:]:
+            fn = block.split("\n", 1)[0].strip()
+            counts[name][fn] = {i: block.count(i) for i in HOPPER_SASS}
+            log(f"  sass {name}: {fn[-40:]} " + " ".join(
+                f"{i} {n}" for i, n in counts[name][fn].items()))
+    for name, part in HOPPER_KERNELS.items():
+        found = [c for fn, c in counts[name].items() if part in fn]
+        if not found or not all(all(c.values()) for c in found):
+            raise AssertionError(f"{name}: kernel *{part}* has no "
+                                 f"{'/'.join(HOPPER_SASS)} in its SASS: "
+                                 f"{counts[name]}")
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -782,8 +822,9 @@ def main() -> int:
     log(f"kernels built in {build_s:.2f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C75" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    sass = sass_counts(_build)
 
     cfg = LlamaConfig.llama3_8b()
     # 2. kernels against plain versions
@@ -858,6 +899,7 @@ def main() -> int:
              "library_ms": bwd["library_ms"]})
     detail = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
+              "ptxas": _build.build_logs, "sass": sass,
               "int8_matmul": int8_rows, "flash_forward": flash_rows,
               "generator": gen_rows, "decode_profile": decode_prof,
               "embedder": emb_row,

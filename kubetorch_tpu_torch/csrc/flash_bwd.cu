@@ -18,35 +18,42 @@
 // 50-67 MB of inputs and outputs (15-20 us at 3.35 TB/s).
 //
 // What the design does about it:
-//  - every product runs on the tensor cores (mma.sync m16n8k16, bf16
-//    operands, f32 accumulators); the score, probability and ds tiles never
-//    leave registers: each is recomputed per 16-key (dq) or 16-query (dk/dv)
-//    slice and re-packed in place as the bf16 A operand of the next product,
-//    as the forward does for P.V;
-//  - dq: one block per (64-row query tile, query head, batch row), four warps
-//    of 16 rows; q and dO stay in registers as A fragments, dq's f32
-//    accumulator too; the live K/V tiles (64 keys) are cp.async
-//    double-buffered in shared memory (68 KB), K feeding q.k^T through
-//    ldmatrix and ds.K through ldmatrix.trans;
-//  - dk/dv: one block per (64-key tile, KV head, batch row), four warps of 16
-//    keys; K and V stay in shared memory, and the block loops over the group's
-//    query heads and the live query tiles (the TPU grid's innermost
-//    nq*group axis turned into a loop), with the Q/dO tiles cp.async
-//    double-buffered (102 KB in all). Working transposed (s^T = k.q^T,
-//    dp^T = v.dO^T) keeps p^T and ds^T in registers as the A operands of
-//    p^T.dO and ds^T.q, so grouped heads sum into their KV head in one pass
-//    with no atomics;
+//  - dq (Ampere's instruction set, still to be moved to wgmma): every
+//    product on mma.sync m16n8k16, bf16 operands, f32 accumulators; one block
+//    per (64-row query tile, query head, batch row), four warps of 16 rows; q
+//    and dO stay in registers as A fragments, dq's f32 accumulator too; the
+//    live K/V tiles (64 keys) are cp.async double-buffered in shared memory
+//    (68 KB), K feeding q.k^T through ldmatrix and ds.K through
+//    ldmatrix.trans; s, p and ds are recomputed per 16-key slice and
+//    re-packed in registers as the A operand of ds.K;
+//  - dk/dv (Hopper's: wgmma, TMA, warp specialisation; hopper.cuh has the
+//    building blocks): one block per (128-key tile, KV head, batch row), two
+//    consumer warpgroups of 64 keys each (240 registers with setmaxnreg) and
+//    a producer warp (24). TMA loads K and V once; they stay in shared
+//    memory. The producer then streams (Q tile, dO tile, lse, delta) of 64
+//    queries through a 2-stage ring with full/empty mbarriers, for every
+//    (query head of the group, live query tile): the TPU grid's innermost
+//    nq*group axis turned into a loop, so the GQA group sums into its KV head
+//    in one pass, in a fixed order, with no atomics. Per tile: s^T = K.Q^T
+//    and dp^T = V.dO^T on wgmma m64n64k16 with both operands K-major from the
+//    swizzled tiles; p^T = exp2(s^T*scale*log2e - lse*log2e) and
+//    ds^T = p^T*(dp^T - delta)*scale in registers; then dV += p^T.dO and
+//    dK += ds^T.Q on wgmma m64n128k16 with A = p^T or ds^T as bf16 registers
+//    (the accumulator layout is the A-register layout) and B = dO or Q,
+//    MN-major. dK and dV stay in f32 registers (128 a thread); the epilogue
+//    stages them through the warpgroup's own K and V rows and writes 16-byte
+//    stores;
 //  - deterministic: every output element is written once by one thread, and
 //    every sum runs in a fixed order, so two runs give identical bits;
-//  - causal: tiles and 16-row slices wholly above the diagonal are skipped,
-//    and the heaviest tiles are launched first;
+//  - causal: tiles and slices wholly above the diagonal are skipped, only
+//    tiles that cross it are masked, and the heaviest tiles are launched
+//    first;
 //  - all tensors are read through their strides in the model's [B, S, H, D]
-//    layout (D contiguous); outputs are written contiguous.
-// Not yet done: wgmma and TMA (mma.sync runs below the card's peak rate).
+//    layout (D contiguous; dk/dv through 4-D tensor maps); outputs are
+//    written contiguous. A 128-key tile that ends past T (T = 64 mod 128)
+//    reads zeros there and its second warpgroup idles.
 
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -58,7 +65,6 @@ constexpr int NWARP = 4;
 constexpr int NTHREAD = NWARP * 32;
 constexpr int TILE_ELEMS = 64 * LDS;                // one 64-row tile
 constexpr int DQ_SMEM_BYTES = 4 * TILE_ELEMS * 2;   // K and V, two stages each
-constexpr int DKV_SMEM_BYTES = 6 * TILE_ELEMS * 2;  // K, V + Q and dO, two stages
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
@@ -69,8 +75,6 @@ struct Params {
   const float* lse;           // contiguous [B, Hq, S]
   const float* delta;         // contiguous [B, Hq, S]
   __nv_bfloat16* dq;          // contiguous [B, S, Hq, HD]
-  __nv_bfloat16* dk;          // contiguous [B, T, Hkv, HD]
-  __nv_bfloat16* dv;          // contiguous [B, T, Hkv, HD]
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -288,144 +292,223 @@ __global__ void __launch_bounds__(NTHREAD) flash_bwd_dq_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// dk/dv: one block per (key tile, KV head, batch row)
+// dk/dv: one block per (128-key tile, KV head, batch row)
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(NTHREAD) flash_bwd_dkv_kernel(const Params p) {
-  // [K][V][stage 0: Q|dO][stage 1: Q|dO], each a padded 64-row tile
-  extern __shared__ __align__(16) __nv_bfloat16 smem[];
-  __nv_bfloat16* k_s = smem;
-  __nv_bfloat16* v_s = smem + TILE_ELEMS;
-  __nv_bfloat16* stage_s = smem + 2 * TILE_ELEMS;
+namespace dkv {
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int mrow = lane & 7, mat = lane >> 3;
-  const int kt = blockIdx.x;                 // causal: low key tiles are heaviest
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int key0 = kt * BK + warp * 16;      // this warp's first key
+constexpr int BKV = 128;                      // keys per block
+constexpr int BQ = 64;                        // queries per streamed tile
+constexpr int STAGES = 2;
+constexpr int NCONSUMER = 2;                  // warpgroups of 64 keys
+constexpr int NTHREAD = (NCONSUMER + 1) * 128;
+constexpr int CONSUMER_REGS = 240, PRODUCER_REGS = 24;
+constexpr uint32_t KV_SUB = BKV * kt::ROW_BYTES;  // one 64-column box of K or V
+constexpr uint32_t Q_SUB = BQ * kt::ROW_BYTES;    // one 64-column box of Q or dO
+constexpr uint32_t KV_BYTES = 2 * KV_SUB;
+constexpr uint32_t Q_BYTES = 2 * Q_SUB;
+constexpr uint32_t STATS_BYTES = 2 * BQ * 4;      // lse and delta of a tile
+constexpr uint32_t OFF_V = KV_BYTES;
+constexpr uint32_t OFF_STAGE = 2 * KV_BYTES;      // stage s: Q | dO
+constexpr uint32_t STAGE_BYTES = 2 * Q_BYTES;
+constexpr uint32_t OFF_STATS = OFF_STAGE + STAGES * STAGE_BYTES;
+constexpr uint32_t OFF_BAR = OFF_STATS + STAGES * STATS_BYTES;
+constexpr int SMEM_BYTES = OFF_BAR + 128 + 1024;  // + barriers, + alignment slack
 
-  const __nv_bfloat16* kp = p.k + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vp = p.v + b * p.v_sb + kvh * p.v_sh;
+struct Params {
+  CUtensorMap tm_q, tm_g;                     // boxes of 64 rows
+  CUtensorMap tm_k, tm_v;                     // boxes of 128 rows
+  const float* lse;                           // contiguous [B, Hq, S]
+  const float* delta;                         // contiguous [B, Hq, S]
+  __nv_bfloat16* dk;                          // contiguous [B, T, Hkv, HD]
+  __nv_bfloat16* dv;                          // contiguous [B, T, Hkv, HD]
+  int S, T, Hq, Hkv, group, causal;
+  float scale, scale_log2;
+};
 
-  // live query tiles: causal skips those wholly before this key tile
-  const int nq = p.S / BQ;
-  const int q_first = p.causal ? min(nq, kt * BK / BQ) : 0;
-  const int n_live = nq - q_first;
-  const int n_iter = p.group * n_live;       // (query head of the group, tile)
+struct Bars {  // mbarriers, in shared memory
+  uint64_t kv, full[STAGES], empty[STAGES];
+};
 
-  auto load_qg = [&](int it, __nv_bfloat16* dst) {
-    const int hq = kvh * p.group + it / n_live;
-    const int qi = q_first + it % n_live;
-    load_rows(dst, p.q + b * p.q_sb + hq * p.q_sh, p.q_ss, qi * BQ, tid);
-    load_rows(dst + TILE_ELEMS, p.g + b * p.g_sb + hq * p.g_sh, p.g_ss, qi * BQ, tid);
-  };
+struct Work {  // the (query head, query tile) loop of one block
+  int kt, kvh, b, q_first, n_live, n_iter;
+};
 
-  load_rows(k_s, kp, p.k_ss, kt * BK, tid);
-  load_rows(v_s, vp, p.v_ss, kt * BK, tid);
-  if (n_iter > 0) load_qg(0, stage_s);
-  cp_async_commit();
-
-  float dk[HD / 8][4], dv[HD / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < HD / 8; ++dn) {
-    dk[dn][0] = dk[dn][1] = dk[dn][2] = dk[dn][3] = 0.f;
-    dv[dn][0] = dv[dn][1] = dv[dn][2] = dv[dn][3] = 0.f;
+__device__ __forceinline__ void producer(const Params& p, uint8_t* smem, Bars& bars,
+                                         const Work& w) {
+  kt::prefetch_tensormap(&p.tm_q);
+  kt::prefetch_tensormap(&p.tm_g);
+  kt::prefetch_tensormap(&p.tm_k);
+  kt::prefetch_tensormap(&p.tm_v);
+  const uint32_t base = kt::smem_u32(smem);
+  const uint32_t bkv = kt::smem_u32(&bars.kv);
+  const int key0 = w.kt * BKV;
+  kt::mbar_expect_tx(bkv, 2 * KV_BYTES);
+  kt::tma_load_4d(base, &p.tm_k, bkv, 0, w.kvh, key0, w.b);
+  kt::tma_load_4d(base + KV_SUB, &p.tm_k, bkv, kt::SUB_COLS, w.kvh, key0, w.b);
+  kt::tma_load_4d(base + OFF_V, &p.tm_v, bkv, 0, w.kvh, key0, w.b);
+  kt::tma_load_4d(base + OFF_V + KV_SUB, &p.tm_v, bkv, kt::SUB_COLS, w.kvh, key0, w.b);
+  for (int it = 0; it < w.n_iter; ++it) {
+    const int st = it % STAGES;
+    const uint32_t ph = (it / STAGES) & 1;
+    const int hq = w.kvh * p.group + it / w.n_live;
+    const int q0 = (w.q_first + it % w.n_live) * BQ;
+    const uint32_t full = kt::smem_u32(&bars.full[st]);
+    const uint32_t q_s = base + OFF_STAGE + st * STAGE_BYTES, g_s = q_s + Q_BYTES;
+    const uint32_t stats = base + OFF_STATS + st * STATS_BYTES;
+    const long long stat = ((long long)w.b * p.Hq + hq) * p.S + q0;
+    kt::mbar_wait(kt::smem_u32(&bars.empty[st]), ph ^ 1);
+    kt::mbar_expect_tx(full, STAGE_BYTES + STATS_BYTES);
+    kt::tma_load_4d(q_s, &p.tm_q, full, 0, hq, q0, w.b);
+    kt::tma_load_4d(q_s + Q_SUB, &p.tm_q, full, kt::SUB_COLS, hq, q0, w.b);
+    kt::tma_load_4d(g_s, &p.tm_g, full, 0, hq, q0, w.b);
+    kt::tma_load_4d(g_s + Q_SUB, &p.tm_g, full, kt::SUB_COLS, hq, q0, w.b);
+    kt::bulk_load(stats, p.lse + stat, BQ * 4, full);
+    kt::bulk_load(stats + BQ * 4, p.delta + stat, BQ * 4, full);
   }
+}
 
-  // A fragments of the warp's 16 K or V rows come from shared memory:
-  // lane l addresses row (l & 7) + 8 * (matrix & 1), column 8 * (matrix >> 1)
-  const int a_off = (warp * 16 + (mat & 1) * 8 + mrow) * LDS + (mat >> 1) * 8;
+__device__ __forceinline__ void consumer(const Params& p, uint8_t* smem, Bars& bars,
+                                         const Work& w, int wg) {
+  const int tw = threadIdx.x & 127;               // thread in the warpgroup
+  const int warp = tw >> 5, lane = tw & 31;
+  const int g = lane >> 2, t = lane & 3;          // accumulator fragment coords
+  const int key0 = w.kt * BKV + wg * 64;          // this warpgroup's first key
+  const int kr = key0 + warp * 16 + g;            // this thread's keys kr, kr + 8
+  const bool dead = key0 >= p.T;                  // keys past T: idle
+  const uint32_t base = kt::smem_u32(smem);
+  const uint32_t k_row = wg * 64 * kt::ROW_BYTES;
 
-  for (int it = 0; it < n_iter; ++it) {
-    if (it + 1 < n_iter) {
-      load_qg(it + 1, stage_s + ((it + 1) & 1) * 2 * TILE_ELEMS);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* q_s = stage_s + (it & 1) * 2 * TILE_ELEMS;
-    const __nv_bfloat16* g_s = q_s + TILE_ELEMS;
-    const int hq = kvh * p.group + it / n_live;
-    const int qi = q_first + it % n_live;
-    const long long stat = ((long long)b * p.Hq + hq) * p.S;
+  float dk[64], dv[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
 
-#pragma unroll 1
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      const int qrow0 = qi * BQ + kk * 16;   // first query of this slice
-      if (p.causal && qrow0 + 15 < key0) continue;  // wholly masked for this warp
-      // s^T = k.q^T and dp^T = v.dO^T for 16 keys x 16 queries
-      float st[2][4], dpt[2][4];
+  kt::mbar_wait(kt::smem_u32(&bars.kv), 0);
+  for (int it = 0; it < w.n_iter; ++it) {
+    const int st = it % STAGES;
+    const uint32_t ph = (it / STAGES) & 1;
+    const int q0 = (w.q_first + it % w.n_live) * BQ;
+    const uint32_t q_s = base + OFF_STAGE + st * STAGE_BYTES, g_s = q_s + Q_BYTES;
+    kt::mbar_wait(kt::smem_u32(&bars.full[st]), ph);
+    // wholly above the diagonal for this warpgroup's keys: nothing to add
+    if (!dead && (!p.causal || q0 + BQ - 1 >= key0)) {
+      // s^T = K Q^T and dp^T = V dO^T: 64 keys x 64 queries each
+      float sT[32], dpT[32];
+      const uint64_t dk_a = kt::desc_kmajor(base + k_row);
+      const uint64_t dv_a = kt::desc_kmajor(base + OFF_V + k_row);
+      const uint64_t dq_b = kt::desc_kmajor(q_s), dg_b = kt::desc_kmajor(g_s);
+      kt::wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        st[nt][0] = st[nt][1] = st[nt][2] = st[nt][3] = 0.f;
-        dpt[nt][0] = dpt[nt][1] = dpt[nt][2] = dpt[nt][3] = 0.f;
-      }
+      for (int ks = 0; ks < HD / 16; ++ks)
+        kt::wgmma_ss_n64(sT, kt::kstep_kmajor(dk_a, KV_SUB, ks),
+                         kt::kstep_kmajor(dq_b, Q_SUB, ks), ks > 0);
 #pragma unroll
-      for (int kp2 = 0; kp2 < HD / 32; ++kp2) {
-        uint32_t ka0[4], ka1[4], va0[4], va1[4];
-        ldsm_x4(ka0, &k_s[a_off + kp2 * 32]);
-        ldsm_x4(ka1, &k_s[a_off + kp2 * 32 + 16]);
-        ldsm_x4(va0, &v_s[a_off + kp2 * 32]);
-        ldsm_x4(va1, &v_s[a_off + kp2 * 32 + 16]);
+      for (int ks = 0; ks < HD / 16; ++ks)
+        kt::wgmma_ss_n64(dpT, kt::kstep_kmajor(dv_a, KV_SUB, ks),
+                         kt::kstep_kmajor(dg_b, Q_SUB, ks), ks > 0);
+      kt::wgmma_commit();
+      kt::wgmma_wait<0>();
+      kt::fence_regs(sT);
+      kt::fence_regs(dpT);
+
+      // p^T over sT, ds^T over dpT; columns are queries
+      const uint32_t lse_s = base + OFF_STATS + st * STATS_BYTES, del_s = lse_s + BQ * 4;
+      const bool diag = p.causal && q0 < key0 + 63;
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const int off = (kk * 16 + nt * 8 + mrow) * LDS + kp2 * 32 + mat * 8;
-          uint32_t qb[4], gb[4];
-          ldsm_x4(qb, &q_s[off]);
-          mma_bf16(st[nt], ka0, qb[0], qb[1]);
-          mma_bf16(st[nt], ka1, qb[2], qb[3]);
-          ldsm_x4(gb, &g_s[off]);
-          mma_bf16(dpt[nt], va0, gb[0], gb[1]);
-          mma_bf16(dpt[nt], va1, gb[2], gb[3]);
-        }
-      }
-      // p^T over st, ds^T over dpt; columns are queries
-      const bool diag = p.causal && (qrow0 < key0 + 15);
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int qc = qrow0 + nt * 8 + 2 * tig;  // this thread's two queries
-        const float2 l2 = *reinterpret_cast<const float2*>(p.lse + stat + qc);
-        const float2 d2 = *reinterpret_cast<const float2*>(p.delta + stat + qc);
+      for (int j = 0; j < 8; ++j) {
+        const int qc = q0 + 8 * j + 2 * t;        // this thread's two queries
+        const float2 l2 = kt::lds_f2(lse_s + (8 * j + 2 * t) * 4);
+        const float2 d2 = kt::lds_f2(del_s + (8 * j + 2 * t) * 4);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const bool odd = e & 1;
-          float pr = exp2f(fmaf(st[nt][e], p.scale_log2,
+          float pr = exp2f(fmaf(sT[4 * j + e], p.scale_log2,
                                 -(odd ? l2.y : l2.x) * kLog2e));
-          if (diag) {
-            const int key = key0 + g + (e >= 2 ? 8 : 0);
-            if (key > qc + (odd ? 1 : 0)) pr = 0.f;
-          }
-          st[nt][e] = pr;
-          dpt[nt][e] = pr * (dpt[nt][e] - (odd ? d2.y : d2.x)) * p.scale;
+          if (diag && kr + (e >= 2 ? 8 : 0) > qc + (odd ? 1 : 0)) pr = 0.f;
+          sT[4 * j + e] = pr;
+          dpT[4 * j + e] = pr * (dpT[4 * j + e] - (odd ? d2.y : d2.x)) * p.scale;
         }
       }
-      // dv += p^T.dO and dk += ds^T.q over these 16 queries
-      uint32_t pa[4], da[4];
-      pack_a(pa, st);
-      pack_a(da, dpt);
-      mma_rows(dv, pa, g_s + kk * 16 * LDS, mrow, mat);
-      mma_rows(dk, da, q_s + kk * 16 * LDS, mrow, mat);
-    }
-    __syncthreads();  // every warp is done with this stage before it refills
-  }
-  cp_async_wait<0>();  // nothing left in flight when there was no live tile
+      uint32_t pa[4][4], da[4][4];
+      kt::pack_a<32>(pa, sT);
+      kt::pack_a<32>(da, dpT);
 
-  const long long r0 = ((long long)b * p.T + key0 + g) * p.Hkv + kvh;
-  const long long r8 = 8LL * p.Hkv * HD;
-  store_rows(p.dk + r0 * HD, p.dk + r0 * HD + r8, dk, tig);
-  store_rows(p.dv + r0 * HD, p.dv + r0 * HD + r8, dv, tig);
+      // dV += p^T dO and dK += ds^T Q over these 64 queries
+      const uint64_t dg_t = kt::desc_mnmajor(g_s, Q_SUB), dq_t = kt::desc_mnmajor(q_s, Q_SUB);
+      kt::fence_regs(dv);
+      kt::fence_regs(dk);
+      kt::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        kt::wgmma_rs_n128_t(dv, pa[kk], kt::kstep_mnmajor(dg_t, kk));
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        kt::wgmma_rs_n128_t(dk, da[kk], kt::kstep_mnmajor(dq_t, kk));
+      kt::wgmma_commit();
+      kt::wgmma_wait<0>();
+      kt::fence_regs(dv);
+      kt::fence_regs(dk);
+    }
+    if (lane == 0) kt::mbar_arrive(kt::smem_u32(&bars.empty[st]));
+  }
+  if (dead) return;
+
+  // dK and dV through this warpgroup's rows of the K and V tiles (no longer read)
+  const long long row = ((long long)w.b * p.T + key0) * p.Hkv + w.kvh;
+  const long long stride = (long long)p.Hkv * HD;
+  kt::store_tile(dk, 1.f, 1.f, smem + k_row, KV_SUB, p.dk + row * HD, stride,
+                 p.T - key0, tw, 1 + wg);
+  kt::store_tile(dv, 1.f, 1.f, smem + OFF_V + k_row, KV_SUB, p.dv + row * HD, stride,
+                 p.T - key0, tw, 1 + wg);
+}
+
+__global__ void __launch_bounds__(NTHREAD, 1) kernel(const __grid_constant__ Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  Bars& bars = *reinterpret_cast<Bars*>(smem + OFF_BAR);
+
+  Work w;
+  w.kt = blockIdx.z;                              // causal: low key tiles are heaviest
+  w.kvh = blockIdx.x;
+  w.b = blockIdx.y;
+  // live query tiles: causal skips those wholly before this key tile
+  const int nq = p.S / BQ;
+  w.q_first = p.causal ? min(nq, w.kt * BKV / BQ) : 0;
+  w.n_live = nq - w.q_first;
+  w.n_iter = p.group * w.n_live;                  // (query head of the group, tile)
+
+  if (threadIdx.x == 0) {
+    kt::mbar_init(kt::smem_u32(&bars.kv), 1);
+    for (int s = 0; s < STAGES; ++s) {
+      kt::mbar_init(kt::smem_u32(&bars.full[s]), 1);
+      kt::mbar_init(kt::smem_u32(&bars.empty[s]), NCONSUMER * 4);  // one per consumer warp
+    }
+    kt::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == NCONSUMER) {
+    kt::reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == NCONSUMER * 128) producer(p, smem, bars, w);
+  } else {
+    kt::reg_alloc<CONSUMER_REGS>();
+    consumer(p, smem, bars, w, wg);
+  }
+}
+
+}  // namespace dkv
+
+bool bad_shape(int B, int S, int T, int Hq, int Hkv, int D) {
+  return D != HD || B <= 0 || S <= 0 || T <= 0 || S % BQ != 0 || T % BK != 0 ||
+         Hkv <= 0 || Hq % Hkv != 0;
 }
 
 int fill_params(Params& p, const void* q, const void* k, const void* v, const void* g,
                 const void* lse, const void* delta, int B, int S, int T, int Hq,
                 int Hkv, int D, const long long* qs, const long long* ks,
                 const long long* vs, const long long* gs, float scale, int causal) {
-  if (D != HD || B <= 0 || S <= 0 || T <= 0 || S % BQ != 0 || T % BK != 0 ||
-      Hkv <= 0 || Hq % Hkv != 0)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, S, T, Hq, Hkv, D)) return (int)cudaErrorInvalidValue;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
@@ -461,7 +544,6 @@ extern "C" int kt_flash_bwd_dq(const void* q, const void* k, const void* v,
                               vs, gs, scale, causal);
   if (bad) return bad;
   p.dq = static_cast<__nv_bfloat16*>(dq);
-  p.dk = p.dv = nullptr;
   // above 48 KB of shared memory needs an opt-in (per device, so every call)
   const cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM_BYTES);
@@ -481,24 +563,34 @@ extern "C" int kt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 long long v_sh, long long g_sb, long long g_ss,
                                 long long g_sh, float scale, int causal,
                                 void* stream) {
-  Params p;
-  const long long qs[3] = {q_sb, q_ss, q_sh}, ks[3] = {k_sb, k_ss, k_sh};
-  const long long vs[3] = {v_sb, v_ss, v_sh}, gs[3] = {g_sb, g_ss, g_sh};
-  const int bad = fill_params(p, q, k, v, g, lse, delta, B, S, T, Hq, Hkv, D, qs, ks,
-                              vs, gs, scale, causal);
-  if (bad) return bad;
-  p.dq = nullptr;
+  if (bad_shape(B, S, T, Hq, Hkv, D)) return (int)cudaErrorInvalidValue;
+  // TMA's rules besides: every stride a multiple of 8 elements, 16-byte
+  // aligned pointers (the wrapper checks both)
+  dkv::Params p;
+  int err = kt::encode_bshd(&p.tm_q, q, B, S, Hq, q_sb, q_ss, q_sh, dkv::BQ);
+  if (!err) err = kt::encode_bshd(&p.tm_g, g, B, S, Hq, g_sb, g_ss, g_sh, dkv::BQ);
+  if (!err) err = kt::encode_bshd(&p.tm_k, k, B, T, Hkv, k_sb, k_ss, k_sh, dkv::BKV);
+  if (!err) err = kt::encode_bshd(&p.tm_v, v, B, T, Hkv, v_sb, v_ss, v_sh, dkv::BKV);
+  if (err) return err;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DKV_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(T / BK, Hkv, B);
-  flash_bwd_dkv_kernel<<<grid, NTHREAD, DKV_SMEM_BYTES,
-                         static_cast<cudaStream_t>(stream)>>>(p);
+  p.S = S; p.T = T; p.Hq = Hq; p.Hkv = Hkv; p.group = Hq / Hkv; p.causal = causal;
+  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
+  static int budget = -1;  // the build's register count does not change
+  if (budget < 0)
+    budget = kt::check_register_budget((const void*)dkv::kernel, dkv::NTHREAD,
+                                       dkv::NCONSUMER, dkv::CONSUMER_REGS,
+                                       dkv::PRODUCER_REGS);
+  if (budget) return budget;
+  const cudaError_t e = cudaFuncSetAttribute(
+      dkv::kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(Hkv, B, (T + dkv::BKV - 1) / dkv::BKV);
+  dkv::kernel<<<grid, dkv::NTHREAD, dkv::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
-extern "C" const char* kt_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+extern "C" const char* kt_error_string(int err) { return kt::error_string(err); }

@@ -7,8 +7,9 @@ minutes)::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o <build>/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source never loads a stale build. The build directory is ``_build/`` inside
+The library name carries a hash of the source, of every shared header
+(``csrc/*.cuh``) and of the flags, so an edited source or header never
+loads a stale build. The build directory is ``_build/`` inside
 the package (listed in ``.gitignore``); it is made at first use. Nothing
 here runs when a module is imported: kernels build at their first launch,
 or all at once, in parallel, through :func:`build_all`.
@@ -51,9 +52,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str, nvcc: str) -> Tuple[subprocess.Popen, Path, Path]:

@@ -15,10 +15,13 @@ caller may pass its own. :func:`flash_attention` differentiates through
 ``(dq, dk, dv)``.
 
 All read the model's ``[B, S, H, D]`` layout: the kernels go through the
-strides, so there is no transpose copy. They take bf16 with ``D == 128``
-and tile 64 rows by 64 keys; the ``block_q``/``block_k`` arguments keep the
-JAX package's tileability rule (:func:`flash_tileable`), so that the same
-shapes take the same path in both packages.
+strides (the forward and dk/dv through TMA tensor maps), so there is no
+transpose copy. They take bf16 with ``D == 128`` and S, T multiples of 64
+(the forward tiles 128 rows by 128 keys, dk/dv 128 keys by 64 queries, dq
+64 by 64; a half tile at the end is zero-filled and masked); the
+``block_q``/``block_k`` arguments keep the JAX package's tileability rule
+(:func:`flash_tileable`), so that the same shapes take the same path in
+both packages.
 """
 
 from __future__ import annotations

@@ -201,3 +201,50 @@ def test_flash_attention_autograd_runs_the_kernels(cuda_device):
         t_fa.dot_product_attention(*ref, causal=True), ref, g.float())
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         _close(a, b, name)
+
+
+# ------------------------------------------- shapes of the Hopper tiling
+# The forward tiles 128 query rows by 128 keys and dk/dv 128 keys by 64
+# queries: S = T = 192 ends in a half tile (zero-filled by TMA, masked or
+# idle), the GQA group sets how many query heads one dk/dv block sums, and
+# column slices of a fused projection reach the kernels through their
+# 4-D tensor maps' strides.
+
+@pytest.mark.parametrize("S,group,causal,strided", [
+    (192, 2, True, False), (192, 2, False, False),
+    (192, 1, True, False), (192, 4, False, False),
+    (320, 1, True, True), (320, 4, False, True),
+])
+def test_flash_kernels_hopper_tiling_shapes(cuda_device, S, group, causal,
+                                            strided):
+    gen = torch.Generator(device=cuda_device).manual_seed(10 + S + group)
+    B, Hkv = 2, 2
+    Hq = Hkv * group
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device,
+                           dtype=torch.bfloat16)
+
+    if strided:
+        q, k, v = rnd(B, S, Hq + 2 * Hkv, 128).split([Hq, Hkv, Hkv], dim=2)
+        g = rnd(B, S, Hq + 2, 128)[:, :, 1:Hq + 1]
+        assert not q.is_contiguous() and not g.is_contiguous()
+    else:
+        q, k, v, g = rnd(B, S, Hq, 128), rnd(B, S, Hkv, 128), \
+            rnd(B, S, Hkv, 128), rnd(B, S, Hq, 128)
+    scale = 128 ** -0.5
+    out, lse = t_fa.flash_forward(q, k, v, scale=scale, causal=causal)
+    pout, plse = t_fa.flash_forward_plain(q, k, v, scale=scale,
+                                          causal=causal)
+    # the same tolerances as test_flash_kernel_matches_plain
+    torch.testing.assert_close(out.float(), pout.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=2e-3)
+    got = t_fa.flash_backward(q, k, v, out, lse, g, scale=scale,
+                              causal=causal)
+    want = t_fa.flash_backward_plain(q, k, v, out, lse, g, scale=scale,
+                                     causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == torch.bfloat16
+        _close(a, b, name)
+

@@ -7,6 +7,8 @@ against these plain versions on the card by ``tests/test_torch_cuda.py``
 and ``chip_smoke.py``.
 """
 
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -289,3 +291,27 @@ def test_flash_backward_checks_shapes_and_counts_no_cpu_launch():
         t_fa.flash_backward(q.to("meta"), k.to("meta"), k.to("meta"),
                             q.to("meta"), lse.to("meta"), q.to("meta"),
                             scale=1.0, causal=True)
+
+
+def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
+    """A library's name hashes its .cu and every csrc/*.cuh it may include:
+    editing a shared header changes the path, so a stale build is never
+    loaded (no nvcc needed: only the names are computed)."""
+    from kubetorch_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers, "the kernels share at least one header"
+    before = {n: _build._lib_path(n) for n in _build.SOURCES}
+    assert all(p.parent == tmp_path / "_build" for p in before.values())
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    after = {n: _build._lib_path(n) for n in _build.SOURCES}
+    assert all(after[n] != before[n] for n in _build.SOURCES)
+    (csrc / "flash_fwd.cu").write_text(
+        (csrc / "flash_fwd.cu").read_text() + "\n")
+    again = {n: _build._lib_path(n) for n in _build.SOURCES}
+    assert again["flash_fwd"] != after["flash_fwd"]
+    assert again["flash_bwd"] == after["flash_bwd"]

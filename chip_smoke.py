@@ -9,11 +9,12 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    kernel built from ``kubetorch_tpu_torch/csrc`` with nvcc for sm_90a (one
    nvcc per source, all started together); ptxas's registers and spills,
    and, where the toolkit has ``cuobjdump``, the Hopper instructions in the
-   SASS (the flash forward and dk/dv kernels must hold wgmma and TMA
-   loads);
+   SASS (the flash forward, dq and dk/dv kernels must hold wgmma and TMA
+   loads, the int8 kernel TMA loads);
 2. each kernel against its plain PyTorch version at the main path's
    shapes, timed beside its bound and one PyTorch library call: int8
-   matmul, flash forward, and the two flash backward kernels (dq, dk/dv)
+   matmul (with each projection's GB/s and share of its bound), flash
+   forward, and the two flash backward kernels (dq, dk/dv; dq's TFLOP/s)
    at the training shape, incl. a strided layout;
 3. ``Generator`` on Llama-3-8B at full width and depth (int8 weights in the
    fused serving layout, random from a seed): 8 ragged prompts of up to 128
@@ -106,14 +107,17 @@ def bound_ms(nbytes: float, flops: float):
 # warpgroup MMA and TMA tensor loads
 HOPPER_SASS = ("HGMMA", "UTMALDG")
 # kernels (a substring of the mangled name, in the library of that source)
-# that must hold both
-HOPPER_KERNELS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd": "dkv6kernel"}
+# and the instructions each must hold
+HOPPER_KERNELS = {("flash_fwd", "flash_fwd_kernel"): ("HGMMA", "UTMALDG"),
+                  ("flash_bwd", "dkv6kernel"): ("HGMMA", "UTMALDG"),
+                  ("flash_bwd", "2dq6kernel"): ("HGMMA", "UTMALDG"),
+                  ("int8_matmul", "w8a16_kernel"): ("UTMALDG",)}
 
 
 def sass_counts(build):
     """{source: {kernel: {instruction: count}}} from ``cuobjdump -sass`` of
     each built library, or None where the toolkit has no cuobjdump. Raises
-    if a kernel of HOPPER_KERNELS lacks HGMMA or UTMALDG."""
+    if a kernel of HOPPER_KERNELS lacks one of its instructions."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     if not os.path.exists(cuobjdump):
         log(f"no {cuobjdump}: SASS not inspected")
@@ -129,11 +133,11 @@ def sass_counts(build):
             counts[name][fn] = {i: block.count(i) for i in HOPPER_SASS}
             log(f"  sass {name}: {fn[-40:]} " + " ".join(
                 f"{i} {n}" for i, n in counts[name][fn].items()))
-    for name, part in HOPPER_KERNELS.items():
+    for (name, part), need in HOPPER_KERNELS.items():
         found = [c for fn, c in counts[name].items() if part in fn]
-        if not found or not all(all(c.values()) for c in found):
-            raise AssertionError(f"{name}: kernel *{part}* has no "
-                                 f"{'/'.join(HOPPER_SASS)} in its SASS: "
+        if not found or not all(c[i] for c in found for i in need):
+            raise AssertionError(f"{name}: kernel *{part}* lacks "
+                                 f"{'/'.join(need)} in its SASS: "
                                  f"{counts[name]}")
     return counts
 
@@ -150,6 +154,7 @@ def check_int8_matmul(dev, cfg):
     shapes = {"wqkv": (E, HD + 2 * KVD), "wo": (HD, E),
               "wgu": (E, 2 * M), "w_down": (M, E)}
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     for name, (K, N) in shapes.items():
         ws = rotating(lambda: torch.randint(-127, 128, (K, N), generator=gen,
@@ -182,11 +187,14 @@ def check_int8_matmul(dev, cfg):
                          "bytes": nbytes, "flops": 2.0 * B * K * N,
                          "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                          "library_ms": l_ms, "bound_ms": b_ms,
-                         "bound_by": b_by,
-                         "splits": qm.pick_splits(B, K, N)[0]})
+                         "bound_by": b_by, "gb_per_s": nbytes / k_ms / 1e6,
+                         "share_of_bound": b_ms / k_ms,
+                         "splits": qm.pick_splits(B, K, N, sms)[0]})
             log(f"int8_matmul {name:6s} B={B:3d} K={K:5d} N={N:5d}: "
-                f"err {err:.3g} kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
-                f"library {l_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+                f"err {err:.3g} kernel {k_ms:.4f} ms "
+                f"({nbytes / k_ms / 1e6:.0f} GB/s, {b_ms / k_ms:.1%} of "
+                f"bound) plain {p_ms:.4f} ms library {l_ms:.4f} ms bound "
+                f"{b_ms:.4f} ms ({b_by})")
         if name == "wqkv":
             # f32 activations take the kernel's hi/lo bf16 split: about
             # 2^-16 relative per x element instead of f32's 2^-24
@@ -296,6 +304,9 @@ def check_flash_backward(dev, B=4, S=2048, Hq=16, Hkv=8):
                                        causal=causal)
         torch.cuda.synchronize()
         errs = [bwd_close(a, b) for a, b in zip(got, want)]
+        if errs[0][1] > 5e-3:
+            raise AssertionError(f"dq kernel vs plain: relative L2 "
+                                 f"{errs[0][1]} > 5e-3")
         del got, want
         dq_ms = time_ms(lambda: fa._bwd_dq(q, k, v, g, lse, delta, scale,
                                            causal))
@@ -321,14 +332,16 @@ def check_flash_backward(dev, B=4, S=2048, Hq=16, Hkv=8):
                "D": D, "max_abs_err": max(e for e, _ in errs),
                "rel_l2_err": {n: r for n, (_, r) in
                               zip(("dq", "dk", "dv"), errs)},
-               "dq_ms": dq_ms, "dkv_ms": dkv_ms, "plain_ms": p_ms,
+               "dq_ms": dq_ms, "dq_tflop_per_s": f_dq / dq_ms / 1e9,
+               "dkv_ms": dkv_ms, "plain_ms": p_ms,
                "library_ms": l_ms, "dq_bound_ms": b_dq[0],
                "dq_bound_by": b_dq[1], "dkv_bound_ms": b_dkv[0],
                "dkv_bound_by": b_dkv[1]}
         rows.append(row)
         log(f"flash_backward causal={causal}: err {row['max_abs_err']:.3g} "
             f"(rel L2 dq {errs[0][1]:.3g} dk {errs[1][1]:.3g} dv "
-            f"{errs[2][1]:.3g}); dq {dq_ms:.4f} ms (bound {b_dq[0]:.4f}), "
+            f"{errs[2][1]:.3g}); dq {dq_ms:.4f} ms ({f_dq / dq_ms / 1e9:.0f} "
+            f"TFLOP/s, bound {b_dq[0]:.4f}), "
             f"dk/dv {dkv_ms:.4f} ms (bound {b_dkv[0]:.4f}), plain "
             f"{p_ms:.3f} ms, library (SDPA backward) {l_ms:.4f} ms")
     # q/k/v as column slices of one fused projection, dO a slice of a wider
@@ -342,6 +355,9 @@ def check_flash_backward(dev, B=4, S=2048, Hq=16, Hkv=8):
     want = fa.flash_backward_plain(sq, sk, sv, out, lse, sg, scale=scale,
                                    causal=True)
     strided = [bwd_close(a, b)[1] for a, b in zip(got, want)]
+    if strided[0] > 5e-3:
+        raise AssertionError(f"dq kernel vs plain, strided: relative L2 "
+                             f"{strided[0]} > 5e-3")
     log(f"flash_backward strided layout: rel L2 {max(strided):.3g}")
     return rows, {"strided_rel_l2_max": max(strided)}
 

@@ -17,17 +17,24 @@
 // at 989 TFLOP/s bf16), dk/dv 4 products, 1.37e11 flops (0.139 ms), against
 // 50-67 MB of inputs and outputs (15-20 us at 3.35 TB/s).
 //
-// What the design does about it:
-//  - dq (Ampere's instruction set, still to be moved to wgmma): every
-//    product on mma.sync m16n8k16, bf16 operands, f32 accumulators; one block
-//    per (64-row query tile, query head, batch row), four warps of 16 rows; q
-//    and dO stay in registers as A fragments, dq's f32 accumulator too; the
-//    live K/V tiles (64 keys) are cp.async double-buffered in shared memory
-//    (68 KB), K feeding q.k^T through ldmatrix and ds.K through
-//    ldmatrix.trans; s, p and ds are recomputed per 16-key slice and
-//    re-packed in registers as the A operand of ds.K;
-//  - dk/dv (Hopper's: wgmma, TMA, warp specialisation; hopper.cuh has the
-//    building blocks): one block per (128-key tile, KV head, batch row), two
+// What the design does about it (both kernels: wgmma, TMA, warp
+// specialisation; hopper.cuh has the building blocks):
+//  - dq: one block per (128-row query tile, query head, batch row), two
+//    consumer warpgroups of 64 rows (240 registers with setmaxnreg) and a
+//    producer warp (24). TMA loads Q and dO once (two 64-column boxes of 128
+//    rows each), bulk copies bring the block's lse and delta; the producer
+//    then streams (K, V) tiles of 64 keys through a 4-stage ring with
+//    full/empty mbarriers. Per tile: S = Q.K^T and dP = dO.V^T on wgmma
+//    m64n64k16, both operands K-major from the swizzled tiles; p and
+//    ds = p*(dP - delta)*scale in registers; dq += ds.K on wgmma m64n128k16
+//    with A = ds as bf16 registers and B = the same K tile read MN-major.
+//    Tile j's S and dP are issued with tile j-1's ds.K and ds_j is computed
+//    while that product runs (the forward's S_j / P_{j-1}.V_{j-1} overlap);
+//    a stage is released once its ds.K has landed. dq stays in f32 registers
+//    (64 a thread) and leaves through the warpgroup's own Q rows with 16-byte
+//    stores. Only a warpgroup's last tile (its diagonal) runs the causal
+//    mask; tiles past it only keep the ring turning for the other one;
+//  - dk/dv: one block per (128-key tile, KV head, batch row), two
 //    consumer warpgroups of 64 keys each (240 registers with setmaxnreg) and
 //    a producer warp (24). TMA loads K and V once; they stay in shared
 //    memory. The producer then streams (Q tile, dO tile, lse, delta) of 64
@@ -45,251 +52,263 @@
 //    stores;
 //  - deterministic: every output element is written once by one thread, and
 //    every sum runs in a fixed order, so two runs give identical bits;
-//  - causal: tiles and slices wholly above the diagonal are skipped, only
-//    tiles that cross it are masked, and the heaviest tiles are launched
-//    first;
+//  - causal: tiles wholly above the diagonal are skipped, only tiles that
+//    cross it are masked, and the heaviest tiles are launched first;
 //  - all tensors are read through their strides in the model's [B, S, H, D]
-//    layout (D contiguous; dk/dv through 4-D tensor maps); outputs are
-//    written contiguous. A 128-key tile that ends past T (T = 64 mod 128)
-//    reads zeros there and its second warpgroup idles.
+//    layout (D contiguous) by 4-D tensor maps; outputs are written
+//    contiguous. A 128-row tile that ends past S or T (64 mod 128) reads
+//    zeros there and its second warpgroup idles.
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // keys per tile
 constexpr int HD = 128;       // head dim (the only one taken)
-constexpr int LDS = HD + 8;   // padded shared-memory row, in elements
-constexpr int NWARP = 4;
-constexpr int NTHREAD = NWARP * 32;
-constexpr int TILE_ELEMS = 64 * LDS;                // one 64-row tile
-constexpr int DQ_SMEM_BYTES = 4 * TILE_ELEMS * 2;   // K and V, two stages each
+constexpr int TILE = 64;      // S and T must be multiples of it
 constexpr float kLog2e = 1.4426950408889634f;
 
+// ---------------------------------------------------------------------------
+// dq: one block per (128 query rows, query head, batch row)
+// ---------------------------------------------------------------------------
+namespace dq {
+
+constexpr int BQ = 128;                       // query rows per block
+constexpr int BK = 64;                        // keys per streamed tile
+constexpr int STAGES = 4;
+constexpr int NCONSUMER = 2;                  // warpgroups of 64 query rows
+constexpr int NTHREAD = (NCONSUMER + 1) * 128;
+constexpr int CONSUMER_REGS = 240, PRODUCER_REGS = 24;
+constexpr uint32_t Q_SUB = BQ * kt::ROW_BYTES;    // one 64-column box of Q or dO
+constexpr uint32_t KV_SUB = BK * kt::ROW_BYTES;   // one 64-column box of K or V
+constexpr uint32_t Q_BYTES = 2 * Q_SUB;
+constexpr uint32_t KV_BYTES = 2 * KV_SUB;
+constexpr uint32_t OFF_G = Q_BYTES;               // dO after Q
+constexpr uint32_t OFF_STAGE = 2 * Q_BYTES;       // stage s: K | V
+constexpr uint32_t STAGE_BYTES = 2 * KV_BYTES;
+constexpr uint32_t OFF_STATS = OFF_STAGE + STAGES * STAGE_BYTES;  // lse | delta
+constexpr uint32_t OFF_BAR = OFF_STATS + 2 * BQ * 4;
+constexpr int SMEM_BYTES = OFF_BAR + 128 + 1024;  // + barriers, + alignment slack
+
 struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* g;     // dO
-  const float* lse;           // contiguous [B, Hq, S]
-  const float* delta;         // contiguous [B, Hq, S]
-  __nv_bfloat16* dq;          // contiguous [B, S, Hq, HD]
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  long long g_sb, g_ss, g_sh;
-  int S, T, Hq, Hkv, group, causal;
-  float scale;
-  float scale_log2;           // scale * log2(e): exponentials in the log2 domain
+  CUtensorMap tm_q, tm_g;                     // boxes of 128 rows
+  CUtensorMap tm_k, tm_v;                     // boxes of 64 rows
+  const float* lse;                           // contiguous [B, Hq, S]
+  const float* delta;                         // contiguous [B, Hq, S]
+  __nv_bfloat16* dq;                          // contiguous [B, S, Hq, HD]
+  int S, T, Hq, group, causal;
+  float scale, scale_log2;
 };
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+struct Bars {  // mbarriers, in shared memory
+  uint64_t q, full[STAGES], empty[STAGES];
+};
 
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const __nv_bfloat16* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const __nv_bfloat16* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(__nv_bfloat16* dst, const __nv_bfloat16* src) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Issue the copies of rows row0..row0+63 (row stride ss, D contiguous) into a
-// padded shared-memory tile.
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long ss, int row0, int tid) {
-  for (int c = tid; c < 64 * (HD / 8); c += NTHREAD) {
-    const int r = c / (HD / 8), cc = (c % (HD / 8)) * 8;
-    cp_async16(&dst[r * LDS + cc], src + (long long)(row0 + r) * ss + cc);
-  }
-}
-
-// D[16x8] += A[16x16] * B[16x8]; A row-major, B column-major, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The accumulators of two 8-column tiles (16 columns) as the A fragment of a
-// 16-deep product.
-__device__ __forceinline__ void pack_a(uint32_t a[4], const float c[2][4]) {
-  a[0] = pack_f32(c[0][0], c[0][1]);
-  a[1] = pack_f32(c[0][2], c[0][3]);
-  a[2] = pack_f32(c[1][0], c[1][1]);
-  a[3] = pack_f32(c[1][2], c[1][3]);
-}
-
-// acc[16 x HD] += a[16 x 16] * rows[16 x HD], rows read transposed from a
-// padded tile (row-major, k = row): one ldmatrix.x4.trans gives the B
-// fragments of two 8-wide head-dim tiles.
-__device__ __forceinline__ void mma_rows(float acc[HD / 8][4], const uint32_t a[4],
-                                         const __nv_bfloat16* rows, int mrow, int mat) {
-#pragma unroll
-  for (int dn = 0; dn < HD / 8; dn += 2) {
-    uint32_t b[4];
-    ldsm_x4_trans(b, &rows[((mat & 1) * 8 + mrow) * LDS + (dn + (mat >> 1)) * 8]);
-    mma_bf16(acc[dn], a, b[0], b[1]);
-    mma_bf16(acc[dn + 1], a, b[2], b[3]);
-  }
-}
-
-__device__ __forceinline__ void store_rows(__nv_bfloat16* o0, __nv_bfloat16* o1,
-                                           const float acc[HD / 8][4], int tig) {
-#pragma unroll
-  for (int dn = 0; dn < HD / 8; ++dn) {
-    const int d = dn * 8 + 2 * tig;
-    *reinterpret_cast<uint32_t*>(o0 + d) = pack_f32(acc[dn][0], acc[dn][1]);
-    *reinterpret_cast<uint32_t*>(o1 + d) = pack_f32(acc[dn][2], acc[dn][3]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dq: one block per (query tile, query head, batch row)
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(NTHREAD) flash_bwd_dq_kernel(const Params p) {
-  extern __shared__ __align__(16) __nv_bfloat16 smem[];  // [stage][K|V][TILE]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;  // mma fragment coordinates
-  const int mrow = lane & 7, mat = lane >> 3;  // ldmatrix row addresses
-  const int nq = p.S / BQ;
-  const int qt = nq - 1 - (int)blockIdx.x;  // heaviest causal tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
+__device__ __forceinline__ void producer(const Params& p, uint8_t* smem, Bars& bars,
+                                         int qt, int h, int b, int n_tiles) {
+  kt::prefetch_tensormap(&p.tm_q);
+  kt::prefetch_tensormap(&p.tm_g);
+  kt::prefetch_tensormap(&p.tm_k);
+  kt::prefetch_tensormap(&p.tm_v);
   const int kvh = h / p.group;
-  const int row0 = qt * BQ + warp * 16;     // this warp's first query row
-
-  const __nv_bfloat16* qp = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* gp = p.g + b * p.g_sb + h * p.g_sh;
-  const __nv_bfloat16* kp = p.k + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vp = p.v + b * p.v_sb + kvh * p.v_sh;
-
-  const int n_tiles = p.causal ? min(p.T / BK, (qt * BQ + BQ - 1) / BK + 1)
-                               : p.T / BK;
-  load_rows(smem, kp, p.k_ss, 0, tid);
-  load_rows(smem + TILE_ELEMS, vp, p.v_ss, 0, tid);
-  cp_async_commit();
-
-  // q and dO as A fragments, one per 16-wide slice of the head dim
-  uint32_t qf[HD / 16][4], gf[HD / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    const __nv_bfloat16* q0 = qp + (long long)(row0 + g) * p.q_ss + ks * 16 + 2 * tig;
-    const __nv_bfloat16* q1 = q0 + 8 * p.q_ss;
-    qf[ks][0] = ld32(q0);
-    qf[ks][1] = ld32(q1);
-    qf[ks][2] = ld32(q0 + 8);
-    qf[ks][3] = ld32(q1 + 8);
-    const __nv_bfloat16* g0 = gp + (long long)(row0 + g) * p.g_ss + ks * 16 + 2 * tig;
-    const __nv_bfloat16* g1 = g0 + 8 * p.g_ss;
-    gf[ks][0] = ld32(g0);
-    gf[ks][1] = ld32(g1);
-    gf[ks][2] = ld32(g0 + 8);
-    gf[ks][3] = ld32(g1 + 8);
-  }
-
-  // rows g and g + 8 of the warp's 16: lse (log2 domain) and delta
-  const long long stat = ((long long)b * p.Hq + h) * p.S;
-  const float lse0 = p.lse[stat + row0 + g] * kLog2e;
-  const float lse1 = p.lse[stat + row0 + g + 8] * kLog2e;
-  const float dl0 = p.delta[stat + row0 + g];
-  const float dl1 = p.delta[stat + row0 + g + 8];
-
-  float dq[HD / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < HD / 8; ++dn)
-    dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
-
+  const int q0 = qt * BQ;
+  const int rows = min(BQ, p.S - q0);             // lse/delta rows inside S
+  const long long stat = ((long long)b * p.Hq + h) * p.S + q0;
+  const uint32_t base = kt::smem_u32(smem);
+  const uint32_t bq = kt::smem_u32(&bars.q);
+  kt::mbar_expect_tx(bq, 2 * Q_BYTES + 2 * rows * 4);
+  kt::tma_load_4d(base, &p.tm_q, bq, 0, h, q0, b);
+  kt::tma_load_4d(base + Q_SUB, &p.tm_q, bq, kt::SUB_COLS, h, q0, b);
+  kt::tma_load_4d(base + OFF_G, &p.tm_g, bq, 0, h, q0, b);
+  kt::tma_load_4d(base + OFF_G + Q_SUB, &p.tm_g, bq, kt::SUB_COLS, h, q0, b);
+  kt::bulk_load(base + OFF_STATS, p.lse + stat, rows * 4, bq);
+  kt::bulk_load(base + OFF_STATS + BQ * 4, p.delta + stat, rows * 4, bq);
   for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      __nv_bfloat16* nxt = smem + ((j + 1) & 1) * 2 * TILE_ELEMS;
-      load_rows(nxt, kp, p.k_ss, (j + 1) * BK, tid);
-      load_rows(nxt + TILE_ELEMS, vp, p.v_ss, (j + 1) * BK, tid);
-      cp_async_commit();
-      cp_async_wait<1>();  // tile j has landed, tile j + 1 may be in flight
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* k_s = smem + (j & 1) * 2 * TILE_ELEMS;
-    const __nv_bfloat16* v_s = k_s + TILE_ELEMS;
-
-#pragma unroll 1
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const int key0 = j * BK + kk * 16;  // first key of this 16-key slice
-      if (p.causal && key0 > row0 + 15) break;  // this and later slices masked
-      // s = q.k^T and dp = dO.v^T for 16 rows x 16 keys (two 8-key tiles)
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-#pragma unroll
-        for (int kp2 = 0; kp2 < HD / 32; ++kp2) {
-          const int off = (kk * 16 + nt * 8 + mrow) * LDS + kp2 * 32 + mat * 8;
-          uint32_t kb[4], vb[4];
-          ldsm_x4(kb, &k_s[off]);
-          mma_bf16(s[nt], qf[2 * kp2], kb[0], kb[1]);
-          mma_bf16(s[nt], qf[2 * kp2 + 1], kb[2], kb[3]);
-          ldsm_x4(vb, &v_s[off]);
-          mma_bf16(dp[nt], gf[2 * kp2], vb[0], vb[1]);
-          mma_bf16(dp[nt], gf[2 * kp2 + 1], vb[2], vb[3]);
-        }
-      }
-      // ds = p * (dp - delta) * scale, written over s
-      const bool diag = p.causal && (key0 + 15 > row0);
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool hi = e >= 2;
-          float pr = exp2f(fmaf(s[nt][e], p.scale_log2, -(hi ? lse1 : lse0)));
-          if (diag) {
-            const int key = key0 + nt * 8 + 2 * tig + (e & 1);
-            const int row = row0 + g + (hi ? 8 : 0);
-            if (key > row) pr = 0.f;
-          }
-          s[nt][e] = pr * (dp[nt][e] - (hi ? dl1 : dl0)) * p.scale;
-        }
-      }
-      // dq += ds.K: ds re-packed as the A operand, K rows through .trans
-      uint32_t a[4];
-      pack_a(a, s);
-      mma_rows(dq, a, k_s + kk * 16 * LDS, mrow, mat);
-    }
-    __syncthreads();  // every warp is done with this stage before it refills
+    const int st = j % STAGES;
+    const uint32_t ph = (j / STAGES) & 1;
+    const uint32_t full = kt::smem_u32(&bars.full[st]);
+    const uint32_t k_s = base + OFF_STAGE + st * STAGE_BYTES, v_s = k_s + KV_BYTES;
+    kt::mbar_wait(kt::smem_u32(&bars.empty[st]), ph ^ 1);
+    kt::mbar_expect_tx(full, STAGE_BYTES);
+    kt::tma_load_4d(k_s, &p.tm_k, full, 0, kvh, j * BK, b);
+    kt::tma_load_4d(k_s + KV_SUB, &p.tm_k, full, kt::SUB_COLS, kvh, j * BK, b);
+    kt::tma_load_4d(v_s, &p.tm_v, full, 0, kvh, j * BK, b);
+    kt::tma_load_4d(v_s + KV_SUB, &p.tm_v, full, kt::SUB_COLS, kvh, j * BK, b);
   }
-
-  __nv_bfloat16* o0 = p.dq + (((long long)b * p.S + row0 + g) * p.Hq + h) * HD;
-  store_rows(o0, o0 + 8LL * p.Hq * HD, dq, tig);
 }
+
+// ds = p * (dp - delta) * scale over one 64-row x 64-key tile, in place of
+// s, with p = exp2(s * scale * log2e - lse * log2e). With MASK, keys above
+// the diagonal get p = 0: only a warpgroup's last tile (the one holding its
+// diagonal) runs it.
+template <bool MASK>
+__device__ __forceinline__ void ds_tile(const Params& p, float (&s)[32], const float (&dp)[32],
+                                        int key0, int r0, int t, float lse0, float lse1,
+                                        float dl0, float dl1) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool hi = e >= 2;
+      float pr = exp2f(fmaf(s[4 * j + e], p.scale_log2, -(hi ? lse1 : lse0)));
+      if (MASK && p.causal && key0 + 8 * j + 2 * t + (e & 1) > r0 + (hi ? 8 : 0)) pr = 0.f;
+      s[4 * j + e] = pr * (dp[4 * j + e] - (hi ? dl1 : dl0)) * p.scale;
+    }
+  }
+}
+
+// Per tile j: S_j = Q K_j^T and dP_j = dO V_j^T are issued together with
+// dq += ds_{j-1} K_{j-1}, and ds_j is computed while that product is on the
+// tensor cores; the stage of tile j - 1 is released once it has landed.
+// Between a product's issue and its wait the code has no branch.
+__device__ __forceinline__ void consumer(const Params& p, uint8_t* smem, Bars& bars,
+                                         int wg, int qt, int h, int b, int n_tiles) {
+  using namespace kt;
+  const int tw = threadIdx.x & 127;               // thread in the warpgroup
+  const int warp = tw >> 5, lane = tw & 31;
+  const int g = lane >> 2, t = lane & 3;          // accumulator fragment coords
+  const int row0 = qt * BQ + wg * 64;             // this warpgroup's first row
+  const int r0 = row0 + warp * 16 + g;            // this thread's rows r0, r0 + 8
+  const uint32_t base = smem_u32(smem);
+  const uint32_t q_row = wg * 64 * ROW_BYTES;
+  // the tiles this warpgroup reads: causal stops at the one holding its
+  // diagonal; rows past S (S = 64 mod 128) read none
+  const int n_live = row0 >= p.S ? 0
+                     : p.causal ? min(n_tiles, row0 / BK + 1) : n_tiles;
+
+  float dq[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+  if (n_live > 0) {
+    mbar_wait(smem_u32(&bars.q), 0);
+    const float* stats = reinterpret_cast<const float*>(smem + OFF_STATS);
+    const int lr = wg * 64 + warp * 16 + g;       // row in the block
+    const float lse0 = stats[lr] * kLog2e, lse1 = stats[lr + 8] * kLog2e;
+    const float dl0 = stats[BQ + lr], dl1 = stats[BQ + lr + 8];
+    const uint64_t dqa = desc_kmajor(base + q_row);           // Q: A of S
+    const uint64_t dga = desc_kmajor(base + OFF_G + q_row);   // dO: A of dP
+    float s[32], dp[32];
+    uint32_t da[4][4];                            // ds of the previous tile
+
+    // tile 0: S_0, dP_0 and ds_0 (dq is still zero)
+    mbar_wait(smem_u32(&bars.full[0]), 0);
+    {
+      const uint64_t dk = desc_kmajor(base + OFF_STAGE);
+      const uint64_t dv = desc_kmajor(base + OFF_STAGE + KV_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks)
+        wgmma_ss_n64(s, kstep_kmajor(dqa, Q_SUB, ks), kstep_kmajor(dk, KV_SUB, ks), ks > 0);
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks)
+        wgmma_ss_n64(dp, kstep_kmajor(dga, Q_SUB, ks), kstep_kmajor(dv, KV_SUB, ks), ks > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+    }
+    ds_tile<true>(p, s, dp, 0, r0, t, lse0, lse1, dl0, dl1);
+    pack_a<32>(da, s);
+
+    auto step = [&](int j, auto masked) {
+      const int st = j % STAGES, pst = (j - 1) % STAGES;
+      mbar_wait(smem_u32(&bars.full[st]), (j / STAGES) & 1);
+      const uint32_t k_s = base + OFF_STAGE + st * STAGE_BYTES;
+      const uint64_t dk = desc_kmajor(k_s), dv = desc_kmajor(k_s + KV_BYTES);
+      const uint64_t dkt = desc_mnmajor(base + OFF_STAGE + pst * STAGE_BYTES, KV_SUB);
+      fence_regs(dq);
+      fence_frags(da);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks)     // S_j = Q K_j^T: 64 rows x 64 keys
+        wgmma_ss_n64(s, kstep_kmajor(dqa, Q_SUB, ks), kstep_kmajor(dk, KV_SUB, ks), ks > 0);
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks)     // dP_j = dO V_j^T
+        wgmma_ss_n64(dp, kstep_kmajor(dga, Q_SUB, ks), kstep_kmajor(dv, KV_SUB, ks), ks > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)     // dq += ds_{j-1} K_{j-1}
+        wgmma_rs_n128_t(dq, da[kk], kstep_mnmajor(dkt, kk));
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+      fence_regs(dp);
+      ds_tile<decltype(masked)::value>(p, s, dp, j * BK, r0, t, lse0, lse1, dl0, dl1);
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_frags(da);
+      if (lane == 0) mbar_arrive(smem_u32(&bars.empty[pst]));
+      pack_a<32>(da, s);
+    };
+    for (int j = 1; j < n_live - 1; ++j) step(j, std::false_type());
+    if (n_live > 1) step(n_live - 1, std::true_type());
+
+    // the last tile's dq += ds K
+    {
+      const int pst = (n_live - 1) % STAGES;
+      const uint64_t dkt = desc_mnmajor(base + OFF_STAGE + pst * STAGE_BYTES, KV_SUB);
+      fence_regs(dq);
+      fence_frags(da);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs_n128_t(dq, da[kk], kstep_mnmajor(dkt, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_frags(da);
+      if (lane == 0) mbar_arrive(smem_u32(&bars.empty[pst]));
+    }
+  }
+  // tiles this warpgroup does not read: only keep the ring turning
+  for (int j = n_live; j < n_tiles; ++j) {
+    mbar_wait(smem_u32(&bars.full[j % STAGES]), (j / STAGES) & 1);
+    if (lane == 0) mbar_arrive(smem_u32(&bars.empty[j % STAGES]));
+  }
+  if (n_live == 0) return;
+
+  // dq through this warpgroup's rows of the Q tile (no longer read); the
+  // scale is already inside ds
+  __nv_bfloat16* out = p.dq + (((long long)b * p.S + row0) * p.Hq + h) * HD;
+  store_tile(dq, 1.f, 1.f, smem + q_row, Q_SUB, out, (long long)p.Hq * HD, p.S - row0, tw,
+             1 + wg);
+}
+
+__global__ void __launch_bounds__(NTHREAD, 1) kernel(const __grid_constant__ Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  Bars& bars = *reinterpret_cast<Bars*>(smem + OFF_BAR);
+
+  const int nqt = (p.S + BQ - 1) / BQ;
+  const int qt = nqt - 1 - (int)blockIdx.z;       // heaviest causal tiles first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int n_all = p.T / BK;
+  const int last_row = min(p.S, qt * BQ + BQ) - 1;
+  const int n_tiles = p.causal ? min(n_all, last_row / BK + 1) : n_all;
+
+  if (threadIdx.x == 0) {
+    kt::mbar_init(kt::smem_u32(&bars.q), 1);
+    for (int s = 0; s < STAGES; ++s) {
+      kt::mbar_init(kt::smem_u32(&bars.full[s]), 1);
+      kt::mbar_init(kt::smem_u32(&bars.empty[s]), NCONSUMER * 4);  // one per consumer warp
+    }
+    kt::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == NCONSUMER) {
+    kt::reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == NCONSUMER * 128) producer(p, smem, bars, qt, h, b, n_tiles);
+  } else {
+    kt::reg_alloc<CONSUMER_REGS>();
+    consumer(p, smem, bars, wg, qt, h, b, n_tiles);
+  }
+}
+
+}  // namespace dq
 
 // ---------------------------------------------------------------------------
 // dk/dv: one block per (128-key tile, KV head, batch row)
@@ -500,57 +519,48 @@ __global__ void __launch_bounds__(NTHREAD, 1) kernel(const __grid_constant__ Par
 }  // namespace dkv
 
 bool bad_shape(int B, int S, int T, int Hq, int Hkv, int D) {
-  return D != HD || B <= 0 || S <= 0 || T <= 0 || S % BQ != 0 || T % BK != 0 ||
+  return D != HD || B <= 0 || S <= 0 || T <= 0 || S % TILE != 0 || T % TILE != 0 ||
          Hkv <= 0 || Hq % Hkv != 0;
-}
-
-int fill_params(Params& p, const void* q, const void* k, const void* v, const void* g,
-                const void* lse, const void* delta, int B, int S, int T, int Hq,
-                int Hkv, int D, const long long* qs, const long long* ks,
-                const long long* vs, const long long* gs, float scale, int causal) {
-  if (bad_shape(B, S, T, Hq, Hkv, D)) return (int)cudaErrorInvalidValue;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.g = static_cast<const __nv_bfloat16*>(g);
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.q_sb = qs[0]; p.q_ss = qs[1]; p.q_sh = qs[2];
-  p.k_sb = ks[0]; p.k_ss = ks[1]; p.k_sh = ks[2];
-  p.v_sb = vs[0]; p.v_ss = vs[1]; p.v_sh = vs[2];
-  p.g_sb = gs[0]; p.g_ss = gs[1]; p.g_sh = gs[2];
-  p.S = S; p.T = T; p.Hq = Hq; p.Hkv = Hkv; p.group = Hq / Hkv; p.causal = causal;
-  p.scale = scale;
-  p.scale_log2 = scale * kLog2e;
-  return 0;
 }
 
 }  // namespace
 
 // Strides are in elements, three per tensor (batch, sequence, head); the head
-// dim must be contiguous. Each returns a cudaError_t.
+// dim must be contiguous, every stride a multiple of 8 elements and the
+// pointers 16-byte aligned (TMA's rules; the wrapper checks them). Each
+// returns a cudaError_t, or a code kt_error_string explains.
 extern "C" int kt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* g, const void* lse, const void* delta,
-                               void* dq, int B, int S, int T, int Hq, int Hkv, int D,
+                               void* dq_out, int B, int S, int T, int Hq, int Hkv, int D,
                                long long q_sb, long long q_ss, long long q_sh,
                                long long k_sb, long long k_ss, long long k_sh,
                                long long v_sb, long long v_ss, long long v_sh,
                                long long g_sb, long long g_ss, long long g_sh,
                                float scale, int causal, void* stream) {
-  Params p;
-  const long long qs[3] = {q_sb, q_ss, q_sh}, ks[3] = {k_sb, k_ss, k_sh};
-  const long long vs[3] = {v_sb, v_ss, v_sh}, gs[3] = {g_sb, g_ss, g_sh};
-  const int bad = fill_params(p, q, k, v, g, lse, delta, B, S, T, Hq, Hkv, D, qs, ks,
-                              vs, gs, scale, causal);
-  if (bad) return bad;
-  p.dq = static_cast<__nv_bfloat16*>(dq);
+  if (bad_shape(B, S, T, Hq, Hkv, D)) return (int)cudaErrorInvalidValue;
+  dq::Params p;
+  int err = kt::encode_bshd(&p.tm_q, q, B, S, Hq, q_sb, q_ss, q_sh, dq::BQ);
+  if (!err) err = kt::encode_bshd(&p.tm_g, g, B, S, Hq, g_sb, g_ss, g_sh, dq::BQ);
+  if (!err) err = kt::encode_bshd(&p.tm_k, k, B, T, Hkv, k_sb, k_ss, k_sh, dq::BK);
+  if (!err) err = kt::encode_bshd(&p.tm_v, v, B, T, Hkv, v_sb, v_ss, v_sh, dq::BK);
+  if (err) return err;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dq = static_cast<__nv_bfloat16*>(dq_out);
+  p.S = S; p.T = T; p.Hq = Hq; p.group = Hq / Hkv; p.causal = causal;
+  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
+  static int budget = -1;  // the build's register count does not change
+  if (budget < 0)
+    budget = kt::check_register_budget((const void*)dq::kernel, dq::NTHREAD, dq::NCONSUMER,
+                                       dq::CONSUMER_REGS, dq::PRODUCER_REGS);
+  if (budget) return budget;
   // above 48 KB of shared memory needs an opt-in (per device, so every call)
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(S / BQ, Hq, B);
-  flash_bwd_dq_kernel<<<grid, NTHREAD, DQ_SMEM_BYTES,
-                        static_cast<cudaStream_t>(stream)>>>(p);
+  const cudaError_t e = cudaFuncSetAttribute(
+      dq::kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(Hq, B, (S + dq::BQ - 1) / dq::BQ);
+  dq::kernel<<<grid, dq::NTHREAD, dq::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 

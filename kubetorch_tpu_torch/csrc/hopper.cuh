@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the flash-attention kernels:
-// mbarriers, TMA loads, wgmma on 128-byte-swizzled shared memory, register
-// rebalancing between warpgroups, and the host-side tensor-map encoding.
+// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
+// TMA loads and bulk copies, wgmma on 128-byte-swizzled shared memory,
+// register rebalancing between warpgroups, and the host-side tensor-map
+// encoding (the flash-attention kernels' 4-D bf16 maps, the int8 matmul's
+// 2-D weight and activation maps).
 //
 // Shared-memory tile layout used throughout: a [rows x 128] bf16 tile (one
 // head of D = 128) is stored as two "sub-tiles" of [rows x 64], d 0-63 then
@@ -106,6 +108,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One box of a 2-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted on `bar` in bytes.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // A contiguous run of bytes (16-byte aligned, a multiple of 16) into shared
 // memory, counted on `bar`.
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
@@ -172,6 +185,16 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// The same for register A fragments that an issued wgmma still reads: they
+// stay live, untouched, until the fence after its wait.
+template <int M, int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(a[i][j]) :: "memory");
 }
 
 #define KT_F4(i) "+f"(d[i]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3])
@@ -325,6 +348,29 @@ static int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H,
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
                         dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeErrorBase + (int)r;
+}
+
+// A tensor map over a row-major [rows x cols] matrix of `elem_bytes`-byte
+// elements of type `dtype` (row stride cols * elem_bytes, a multiple of
+// 16): boxes of `box_cols` x `box_rows` with box_cols * elem_bytes = 128,
+// 128-byte swizzle (16-byte chunk c of box row r lands at chunk c ^ (r % 8)
+// when the box is 1024-byte aligned). Rows and columns past the matrix read
+// as zeros. Returns as encode_bshd.
+static int encode_rows(CUtensorMap* map, CUtensorMapDataType dtype, int elem_bytes,
+                       const void* ptr, long long rows, long long cols, int box_cols,
+                       int box_rows) {
+  EncodeTiledFn fn;
+  const int err = encode_fn(&fn);
+  if (err) return err;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult r = fn(map, dtype, 2, const_cast<void*>(ptr), dims, strides, box,
+                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kEncodeErrorBase + (int)r;

@@ -14,11 +14,11 @@ caller may pass its own. :func:`flash_attention` differentiates through
 :class:`_FlashFunction`, which saves ``(q, k, v, out, lse)`` and returns
 ``(dq, dk, dv)``.
 
-All read the model's ``[B, S, H, D]`` layout: the kernels go through the
-strides (the forward and dk/dv through TMA tensor maps), so there is no
-transpose copy. They take bf16 with ``D == 128`` and S, T multiples of 64
-(the forward tiles 128 rows by 128 keys, dk/dv 128 keys by 64 queries, dq
-64 by 64; a half tile at the end is zero-filled and masked); the
+All read the model's ``[B, S, H, D]`` layout through TMA tensor maps built
+from the strides, so there is no transpose copy. They take bf16 with
+``D == 128`` and S, T multiples of 64 (the forward tiles 128 rows by 128
+keys, dk/dv 128 keys by 64 queries, dq 128 rows by 64 keys; a half tile at
+the end is zero-filled and masked or left to an idle warpgroup); the
 ``block_q``/``block_k`` arguments keep the JAX package's tileability rule
 (:func:`flash_tileable`), so that the same shapes take the same path in
 both packages.

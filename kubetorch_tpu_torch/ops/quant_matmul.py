@@ -2,9 +2,11 @@
 ``kubetorch_tpu/ops/quant_matmul.py``).
 
 On a CUDA tensor :func:`int8_matmul` launches the hand-written W8A16 kernel
-in ``csrc/int8_matmul.cu`` (weights dequantized in registers into
-tensor-core products with float32 accumulation, K splits summed in a fixed
-order inside a thread-block cluster); on a CPU tensor it takes
+in ``csrc/int8_matmul.cu`` (a producer warp streams weight and activation
+tiles by TMA into a shared-memory ring; consumer warps dequantize the
+weights into tensor-core products with float32 accumulation; K splits
+summed in a fixed order inside a thread-block cluster); on a CPU tensor it
+takes
 :func:`int8_matmul_plain`, the same function in plain PyTorch.
 
 Unlike the JAX package, the kernel is the default for int8 decode: there,
@@ -20,15 +22,15 @@ Numerics: ``(x @ bf16(w_q)) * scale`` with float32 accumulation, cast to
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from kubetorch_tpu_torch.ops import _build
 
-_SMS = 132            # H100 SXM streaming multiprocessors
-_BN, _KSTEP, _NWARP = 128, 16, 4   # the kernel's column tile, k-step, warps
-_MAX_SPLITS = 16      # K splits of a tile share one thread-block cluster
+_BN, _BK, _KSTEP = 128, 64, 16   # the kernel's column tile, stage rows, k-step
+_MAX_SPLITS = 8       # K splits of a tile share one (portable) cluster
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -45,15 +47,24 @@ def _batch_chunk(b: int) -> int:
     return 8 if b <= 8 else 16 if b <= 16 else 32
 
 
-def pick_splits(b: int, k: int, n: int) -> Tuple[int, int]:
-    """(K splits, K rows per split) so the grid holds about four blocks per
-    SM on 132 SMs, at most 16 splits (one cluster); each split is a whole
-    number of the four warps' 16-row k-steps."""
-    step = _NWARP * _KSTEP
-    base = -(-b // _batch_chunk(b)) * -(-n // _BN)
-    want = max(1, min(-(-4 * _SMS // base), k // step, _MAX_SPLITS))
+def _blocks_per_sm(b: int) -> int:
+    """Blocks the partition plans for on one SM: two up to 16 batch rows
+    (three fit at 8: the headroom lets clusters of 8 find room on every
+    GPC in one wave), one above (a 32-row chunk takes more registers and a
+    deeper ring)."""
+    return 2 if b <= 16 else 1
+
+
+def pick_splits(b: int, k: int, n: int, sms: int) -> Tuple[int, int]:
+    """(K splits, K rows per split): as many splits as keep every block of
+    the grid resident at once on ``sms`` SMs, at most 8 (one portable
+    cluster) and at most one per 64-row stage; each split a whole number of
+    stages and none empty."""
+    tiles = -(-b // _batch_chunk(b)) * -(-n // _BN)
+    want = max(1, min(sms * _blocks_per_sm(b) // tiles, -(-k // _BK),
+                      _MAX_SPLITS))
     per = -(-k // want)
-    per = -(-per // step) * step
+    per = -(-per // _BK) * _BK
     return -(-k // per), per
 
 
@@ -104,7 +115,7 @@ def _launch(x: torch.Tensor, w_q: torch.Tensor,
                          f"K % {_KSTEP} == 0 and 16-byte aligned x and "
                          f"weights (K={K}, N={N})")
     out = torch.empty((B, N), dtype=x.dtype, device=x.device)
-    splits, per = pick_splits(B, K, N)
+    splits, per = pick_splits(B, K, N, _sm_count(x.device.index))
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.kt_int8_matmul(
@@ -114,6 +125,11 @@ def _launch(x: torch.Tensor, w_q: torch.Tensor,
     _build.check(lib, err, "int8_matmul")
     int8_matmul.launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _lib() -> ctypes.CDLL:

@@ -23,15 +23,31 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("b,xdtype", [(8, torch.bfloat16), (64, torch.bfloat16),
-                                      (3, torch.float32)])
-def test_int8_kernel_matches_plain(cuda_device, b, xdtype):
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    k, n = 4096, 6144
-    x = torch.randn(b, k, generator=gen, device=cuda_device, dtype=xdtype)
-    w = torch.randint(-127, 128, (k, n), generator=gen, device=cuda_device,
+# The four fused Llama-3-8B decode projections, and a K that ends in a part
+# of the kernel's 64-row stage; the batch chunk is 8, 16 or 32 rows (B = 9
+# and 256 cross them); f32 x takes the hi/lo split.
+_INT8_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
+                (4112, 256)]
+_INT8_CASES = ([(b, k, n, torch.bfloat16) for b in (1, 8, 9, 64, 256)
+                for k, n in _INT8_SHAPES]
+               + [(3, 4096, 6144, torch.float32), (1, 14336, 4096, torch.float32),
+                  (8, 4096, 6144, torch.float32), (64, 4112, 256, torch.float32),
+                  (256, 4096, 4096, torch.float32)])
+
+
+def _int8_inputs(device, b, k, n, xdtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(b, k, generator=gen, device=device, dtype=xdtype)
+    w = torch.randint(-127, 128, (k, n), generator=gen, device=device,
                       dtype=torch.int8)
-    scale = torch.full((1, n), 1e-3, device=cuda_device, dtype=xdtype)
+    scale = ((torch.rand(n, generator=gen, device=device) + 0.5)
+             * (4.0 / k ** 0.5 / 127.0)).to(xdtype)
+    return x, w, scale
+
+
+@pytest.mark.parametrize("b,k,n,xdtype", _INT8_CASES)
+def test_int8_kernel_matches_plain(cuda_device, b, k, n, xdtype):
+    x, w, scale = _int8_inputs(cuda_device, b, k, n, xdtype, b + k + n)
     before = t_qm.int8_matmul.launches
     got = t_qm.int8_matmul(x, w, scale)
     want = t_qm.int8_matmul_plain(x, w, scale)
@@ -41,7 +57,16 @@ def test_int8_kernel_matches_plain(cuda_device, b, xdtype):
     # f32 x: the kernel's hi/lo bf16 split keeps ~16 bits of x (2^-16)
     rtol = 2 ** -7 if xdtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                               atol=1e-3 * want.float().abs().max().item())
+                               atol=1e-3 * want.float().abs().max().item()
+                               if xdtype == torch.bfloat16
+                               else 1e-4 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("b,k,n", [(8, 4096, 28672), (64, 14336, 4096)])
+def test_int8_kernel_deterministic(cuda_device, b, k, n):
+    x, w, scale = _int8_inputs(cuda_device, b, k, n, torch.bfloat16, 40 + b)
+    assert torch.equal(t_qm.int8_matmul(x, w, scale),
+                       t_qm.int8_matmul(x, w, scale))
 
 
 def test_int8_kernel_refuses_untiled_shapes(cuda_device):
@@ -204,16 +229,21 @@ def test_flash_attention_autograd_runs_the_kernels(cuda_device):
 
 
 # ------------------------------------------- shapes of the Hopper tiling
-# The forward tiles 128 query rows by 128 keys and dk/dv 128 keys by 64
-# queries: S = T = 192 ends in a half tile (zero-filled by TMA, masked or
-# idle), the GQA group sets how many query heads one dk/dv block sums, and
-# column slices of a fused projection reach the kernels through their
-# 4-D tensor maps' strides.
+# The forward tiles 128 query rows by 128 keys, dk/dv 128 keys by 64
+# queries and dq 128 query rows by 64 keys: S = T = 64 or 192 ends in a
+# half tile (zero-filled by TMA, masked, or left to an idle warpgroup), the
+# GQA group sets how many query heads one dk/dv block sums and which KV
+# head a dq block reads, and column slices of a fused projection reach the
+# kernels through their 4-D tensor maps' strides.
 
 @pytest.mark.parametrize("S,group,causal,strided", [
     (192, 2, True, False), (192, 2, False, False),
     (192, 1, True, False), (192, 4, False, False),
     (320, 1, True, True), (320, 4, False, True),
+    (64, 1, True, False), (64, 2, False, True), (64, 8, True, True),
+    (192, 1, False, True), (192, 2, True, True), (192, 8, True, False),
+    (2048, 1, True, True), (2048, 2, False, False), (2048, 8, True, False),
+    (2048, 8, False, True),
 ])
 def test_flash_kernels_hopper_tiling_shapes(cuda_device, S, group, causal,
                                             strided):
@@ -240,11 +270,25 @@ def test_flash_kernels_hopper_tiling_shapes(cuda_device, S, group, causal,
     torch.testing.assert_close(out.float(), pout.float(), rtol=2e-2,
                                atol=2e-2)
     torch.testing.assert_close(lse, plse, rtol=0, atol=2e-3)
+    before = t_fa.flash_backward.dq_launches
     got = t_fa.flash_backward(q, k, v, out, lse, g, scale=scale,
                               causal=causal)
+    assert t_fa.flash_backward.dq_launches == before + 1
     want = t_fa.flash_backward_plain(q, k, v, out, lse, g, scale=scale,
                                      causal=causal)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.shape == b.shape and a.dtype == torch.bfloat16
         _close(a, b, name)
 
+
+
+def test_dq_kernel_takes_external_delta_and_is_deterministic(cuda_device):
+    q, k, v, g = _bwd_inputs(cuda_device, B=2, S=2048, Hq=8, Hkv=4, seed=30)
+    out, lse = t_fa.flash_forward(q, k, v, scale=0.1, causal=True)
+    delta = t_fa.flash_bwd_delta(g, out) * 0.5
+    first = t_fa._bwd_dq(q, k, v, g, lse, delta, 0.1, True)
+    again = t_fa._bwd_dq(q, k, v, g, lse, delta, 0.1, True)
+    assert torch.equal(first, again)
+    want = t_fa.flash_backward_plain(q, k, v, out, lse, g, scale=0.1,
+                                     causal=True, delta=delta)[0]
+    _close(first, want, "dq")

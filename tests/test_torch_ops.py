@@ -147,11 +147,22 @@ def test_decode_matmul_viable_gate():
 
 
 def test_pick_splits_covers_k():
-    for b, k, n in [(8, 4096, 6144), (8, 14336, 4096), (64, 4096, 28672),
-                    (1, 100, 8), (256, 4096, 4096)]:
-        splits, per = t_qm.pick_splits(b, k, n)
-        assert 1 <= splits <= 16 and per % 64 == 0
-        assert (splits - 1) * per < k <= splits * per
+    """Every k row falls in exactly one non-empty split of whole 64-row
+    stages, at most 8 splits (a portable cluster); the grid of (batch chunk,
+    column tile, split) blocks covers every column once and fits the card's
+    resident blocks whenever K allows more than one split."""
+    for sms in (132, 114):
+        for b, k, n in [(8, 4096, 6144), (8, 14336, 4096), (64, 4096, 28672),
+                        (1, 100, 8), (256, 4096, 4096), (8, 4112, 4096),
+                        (9, 1040, 256)]:
+            splits, per = t_qm.pick_splits(b, k, n, sms)
+            assert 1 <= splits <= 8 and per % 64 == 0
+            assert (splits - 1) * per < k <= splits * per
+            rows = 8 if b <= 8 else 16 if b <= 16 else 32
+            tiles = -(-b // rows) * -(-n // 128)
+            assert tiles * 128 >= n and (tiles // -(-b // rows) - 1) * 128 < n
+            resident = sms * (2 if b <= 16 else 1)
+            assert splits == 1 or tiles * splits <= resident
 
 
 # --------------------------------------------------------------- flash

@@ -20,9 +20,23 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    fused serving layout, random from a seed): 8 ragged prompts of up to 128
    tokens, 32 greedy tokens, with the bf16 and the int8 KV cache; every
    decode projection must go through the int8 kernel;
-4. ``Embedder`` on the same weights: 2 prompts of 1500 and 2048 tokens,
+4. ``RollingGenerator`` on the same weights at the JAX serving bench's
+   B = 64 rung (64 rows of 2048 slots, 8 steps a decode chunk, prefill
+   chunks of 256), with the bf16 and the int8 grid: waves of ragged prompts
+   of 16-512 tokens (64 new tokens each, eight rows at temperature 0.8)
+   admitted while other rows decode, a shared 256-token prefix, a
+   1500-token prompt through chunked prefill beside the decoding rows, an
+   evict and readmit. Every decode chunk launches the int8 kernel exactly
+   n_layers × 4 × 8 times and every prefill chunk n_layers × 4 times when
+   rows × chunk ≤ 256, else none; a chunk-mode block and the merge are held
+   against the grid-written block, a one-row prefill chunk against that
+   row inside a full-width one, the readmitted row against its first
+   admission, and the sampled rows reproduce under one seed inside
+   ``filter_logits``' support. Each chunk is timed (host, device, idle
+   share) under a kernel-only trace;
+5. ``Embedder`` on the same weights: 2 prompts of 1500 and 2048 tokens,
    which pad to S = 2048 and take the flash kernel in all 32 layers;
-5. ``Trainer`` on Llama-3 1B at full width (the JAX package's largest
+6. ``Trainer`` on Llama-3 1B at full width (the JAX package's largest
    single-chip training fit: remat "dots_no_mlp", cross-entropy chunks of
    4096, AdamW), B = 4, S = 2048 batches from ``lm_batches`` over a random
    corpus: 2 warm-up and 5 timed steps, then 3 steps on fresh batches;
@@ -43,6 +57,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import os
 import re
@@ -363,7 +378,7 @@ def check_flash_backward(dev, B=4, S=2048, Hq=16, Hkv=8):
 
 
 # --------------------------------------------------------------------------
-# phase 3: Generator, phase 4: Embedder
+# phase 3: Generator, phase 5: Embedder
 # --------------------------------------------------------------------------
 
 @contextlib.contextmanager
@@ -659,7 +674,493 @@ def run_embedder(params, cfg, dev, prompts):
 
 
 # --------------------------------------------------------------------------
-# phase 5: Trainer
+# phase 4: RollingGenerator (continuous batching)
+# --------------------------------------------------------------------------
+
+# the JAX serving bench's B = 64 rung (kubetorch_tpu/bench_serving.py:127)
+ROLLING = dict(max_slots=64, max_len=2048, steps_per_call=8,
+               prefill_chunk=256)
+ROLLING_SAMPLING = dict(top_k=50, top_p=0.9)   # for the temperature-0.8 rows
+
+
+def traced(fn):
+    """Run ``fn()`` under a kernel-only trace (``torch.profiler``, CUDA
+    activity) → (its result, {host_ms: host clock to a synchronise,
+    device_span_ms: CUDA events around it, device_busy_ms: the kernels'
+    summed time, idle_share: 1 − busy/host, kernels: by name})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof.key_averages())
+    busy = sum(k[1] for k in kernels)
+    return out, {"host_ms": host_ms,
+                 "device_span_ms": start.elapsed_time(end),
+                 "device_busy_ms": busy,
+                 "idle_share": (1 - busy / host_ms) if busy else None,
+                 "kernels": kernels}
+
+
+def counted(fn):
+    """``fn()`` with the int8 kernel's counter set to 0 just before it and
+    read just after → (result, launches)."""
+    from kubetorch_tpu_torch.ops import quant_matmul as qm
+
+    qm.int8_matmul.launches = 0
+    out = fn()
+    return out, qm.int8_matmul.launches
+
+
+def update_rel(got, want, x):
+    """||got − want|| / ||want − x||: a block's disagreement relative to
+    its update of the residual stream ``x``."""
+    return ((got - want).float().norm() / (want - x).float().norm()).item()
+
+
+def check_rolling_block(eng, cfg, layers=(0, -1)):
+    """One chunk-mode block, then the merge, against ``_block_cached`` on
+    the grid with this step's K/V written in, on the live rows' pending
+    greedy tokens. The merge is held exactly (bf16 values as written; int8
+    bytes and scales as ``_kv_quantize`` gives them); the blocks to
+    3e-2 of their update (the int8 grid's ``_block_cached_q`` attends this
+    step's K/V quantized, the chunk block attends them in bf16)."""
+    from kubetorch_tpu_torch.models import llama
+
+    dev = eng.device
+    B, M = eng.max_slots, eng.max_len
+    live = torch.from_numpy(eng._active).to(dev)
+    pos = torch.from_numpy(eng._pos).to(dev)
+    tok = eng._logits.argmax(-1)
+    x = eng.params["embedding"][tok[:, None]].to(cfg.compute_dtype)
+    sin, cos = llama.rope_angles(pos[:, None], cfg.head_dim, cfg.rope_theta)
+    m = torch.arange(M, device=dev)[None, None, :]
+    gmask = (m < pos[:, None, None]) & live[:, None, None]
+    emask = live[:, None, None].clone()
+    full_mask = (m <= pos[:, None, None]) & live[:, None, None]
+    slices = llama._layer_slices(eng.params["layers"], cfg.n_layers)
+    Hkv, D = cfg.n_kv_heads, cfg.head_dim
+    cdt = torch.bfloat16 if eng.kv_quantized else eng.cache["k"].dtype
+    worst = 0.0
+    with torch.no_grad():
+        for li in layers:
+            li = li % cfg.n_layers
+            chunk = {n: torch.zeros((cfg.n_layers, B, 1, Hkv, D), dtype=cdt,
+                                    device=dev) for n in ("k", "v")}
+            got = llama._block_cached_chunk(x, slices[li], li, sin, cos,
+                                            eng.cache, chunk, 0, gmask,
+                                            emask, cfg)
+            one = {n: t[li:li + 1].clone() for n, t in eng.cache.items()}
+            counts = eng._active.astype(np.int64)
+            llama.merge_chunk_into_grid(
+                one, {n: c[li:li + 1] for n, c in chunk.items()}, eng._pos,
+                counts)
+            rows = np.flatnonzero(eng._active)
+            r_t = torch.from_numpy(rows).to(dev)
+            p_t = pos[r_t]
+            written = {n: t[0, r_t, p_t] for n, t in one.items()}
+            if eng.kv_quantized:
+                for n in ("k", "v"):
+                    q, s = llama._kv_quantize(chunk[n][li, r_t, 0])
+                    if not (torch.equal(written[n], q)
+                            and torch.equal(written[n + "s"], s)):
+                        raise AssertionError(f"layer {li}: int8 grid merge "
+                                             f"differs from _kv_quantize")
+            elif not all(torch.equal(written[n], chunk[n][li, r_t, 0])
+                         for n in ("k", "v")):
+                raise AssertionError(f"layer {li}: bf16 grid merge differs "
+                                     f"from the chunk")
+            block = (llama._block_cached_q if eng.kv_quantized
+                     else llama._block_cached)
+            want = block(x, slices[li], 0, sin, cos, one, pos, full_mask,
+                         cfg)
+            rel = update_rel(got[r_t], want[r_t], x[r_t])
+            worst = max(worst, rel)
+            if not np.isfinite(rel) or rel > 3e-2:
+                raise AssertionError(f"layer {li}: chunk-mode block vs "
+                                     f"_block_cached relative error {rel}")
+            del one, chunk
+    return {"rows": int(live.sum()), "layers": list(layers),
+            "block_rel_err_max": worst}
+
+
+def check_prefill_subset(eng, cfg, slot, feed):
+    """The next prefill chunk of row ``slot`` run over that row alone
+    (``grid_rows``, the int8 kernel) against the same chunk with the row
+    inside a full-width batch (dequantized matmuls), block by block on the
+    same input: the row's block updates agree to 3e-2 (the kernel against
+    the dequantized matmul, as phase 3 holds them)."""
+    from kubetorch_tpu_torch.models import llama
+
+    dev = eng.device
+    B, M, C = eng.max_slots, eng.max_len, len(feed)
+    Hkv, D = cfg.n_kv_heads, cfg.head_dim
+    cdt = torch.bfloat16 if eng.kv_quantized else eng.cache["k"].dtype
+    start = int(eng._pos[slot])
+    ar = torch.arange(C, device=dev)
+    m = torch.arange(M, device=dev)[None, None, :]
+    emask = ar[None, None, :] <= ar[None, :, None]
+    pos_all = torch.from_numpy(eng._pos).to(dev)
+    toks = torch.zeros((B, C), dtype=torch.long, device=dev)
+    toks[slot] = torch.tensor(feed, device=dev)
+    counts = torch.zeros(B, dtype=torch.long, device=dev)
+    counts[slot] = C
+    full = {"positions": pos_all[:, None] + ar[None, :],
+            "gmask": ((m < pos_all[:, None, None])
+                      & (counts > 0)[:, None, None]).expand(B, C, M),
+            "emask": emask & (ar[None, None, :] < counts[:, None, None])}
+    one = {"positions": (start + ar)[None, :],
+           "gmask": (m < start).expand(1, C, M), "emask": emask}
+    for d in (full, one):
+        d["sin"], d["cos"] = llama.rope_angles(d["positions"], cfg.head_dim,
+                                               cfg.rope_theta)
+        d["chunk"] = {n: torch.zeros((cfg.n_layers, d["gmask"].shape[0], C,
+                                      Hkv, D), dtype=cdt, device=dev)
+                      for n in ("k", "v")}
+    rows = torch.tensor([slot], device=dev)
+    worst = 0.0
+    with torch.no_grad():
+        x_full = eng.params["embedding"][toks].to(cfg.compute_dtype)
+        x_one = x_full[slot:slot + 1].clone()
+        for li, layer in enumerate(llama._layer_slices(
+                eng.params["layers"], cfg.n_layers)):
+            x_full[slot] = x_one[0]
+            y_one, launches = counted(lambda: llama._block_cached_chunk(
+                x_one, layer, li, one["sin"], one["cos"], eng.cache,
+                one["chunk"], 0, one["gmask"], one["emask"], cfg, rows))
+            if launches != 4:
+                raise AssertionError(f"one-row chunk block launched the "
+                                     f"int8 kernel {launches} times, not 4")
+            y_full = llama._block_cached_chunk(
+                x_full, layer, li, full["sin"], full["cos"], eng.cache,
+                full["chunk"], 0, full["gmask"], full["emask"], cfg)
+            rel = update_rel(y_one[0], y_full[slot], x_one[0])
+            worst = max(worst, rel)
+            if not np.isfinite(rel) or rel > 3e-2:
+                raise AssertionError(f"layer {li}: one-row prefill chunk vs "
+                                     f"full-width row, relative error {rel}")
+            x_one, x_full = y_one, y_full
+    del full, one
+    return {"slot": slot, "start": start, "chunk": C,
+            "block_rel_err_max": worst}
+
+
+def rolling_request(rng, cfg, n_lo, n_hi):
+    return rng.integers(1, cfg.vocab_size,
+                        size=int(rng.integers(n_lo, n_hi + 1))).tolist()
+
+
+def run_rolling(params, cfg, dev, kv_dtype, out_dir):
+    """8B rolling decode at the serving bench's B = 64 rung: waves of ragged
+    prompts (16-512 tokens, 64 new tokens each; eight rows at temperature
+    0.8) admitted while other rows decode, a registered 256-token prefix
+    that several requests hit, one 1500-token prompt through chunked
+    prefill while other rows decode, and one evict and readmit. Every
+    admission, prefill chunk and decode chunk has its int8 launches
+    counted and is timed under a kernel-only trace."""
+    from kubetorch_tpu_torch.models import RollingGenerator
+
+    L4 = cfg.n_layers * 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = RollingGenerator(params, cfg, kv_dtype=kv_dtype, seed=SEED,
+                           **ROLLING, **ROLLING_SAMPLING)
+    C, K = eng.prefill_chunk, eng.steps_per_call
+    rng = np.random.default_rng(SEED + 10)
+    prefix = rng.integers(1, cfg.vocab_size, size=256).tolist()
+    pid, prefix_launches = counted(lambda: eng.register_prefix(prefix))
+    if prefix_launches != L4:
+        raise AssertionError(f"prefix fill launched {prefix_launches}, "
+                             f"want {L4}")
+    probe = rolling_request(rng, cfg, 100, 100)
+    long_prompt = rolling_request(rng, cfg, 1500, 1500)
+
+    def wave(n, n_prefixed=0, n_sampled=0, hi=512):
+        reqs = []
+        for i in range(n):
+            if i < n_prefixed:
+                reqs.append(dict(prompt=rolling_request(rng, cfg, 16, 64),
+                                 prefix_id=pid))
+            else:
+                reqs.append(dict(prompt=rolling_request(rng, cfg, 16, hi)))
+            if n_prefixed <= i < n_prefixed + n_sampled:
+                reqs[-1]["temperature"] = 0.8
+        return reqs
+
+    schedule = {0: wave(24, n_prefixed=4, n_sampled=8), 1: "probe",
+                3: wave(24, n_prefixed=3), 4: "evict", 6: "long",
+                8: wave(12, hi=256)}
+    rid_of = {}
+    tokens = {}
+    admissions, prefills, decodes = [], [], []
+    checks = {}
+    tick = 0
+    while eng.pending or any(t >= tick for t in schedule):
+        todo = schedule.get(tick)
+        if todo == "probe":
+            rid_of["probe"] = eng.submit(probe, max_new_tokens=64)
+        elif todo == "evict":
+            first = list(tokens[rid_of["probe"]])
+            if not eng.evict(rid_of["probe"]):
+                raise AssertionError("probe not found for evict")
+            rid_of["probe_first"] = (rid_of["probe"], first)
+            rid_of["probe"] = eng.submit(probe, max_new_tokens=64)
+        elif todo == "long":
+            if eng.prefilling_rows:
+                raise AssertionError("rows still prefilling at tick 6")
+            rid_of["long"] = eng.submit(long_prompt, max_new_tokens=64)
+        elif todo:
+            for r in todo:
+                rid = eng.submit(r["prompt"], max_new_tokens=64,
+                                 temperature=r.get("temperature", 0.0),
+                                 prefix_id=r.get("prefix_id"))
+                if r.get("temperature"):
+                    rid_of.setdefault("sampled", []).append(rid)
+        groups = []
+        orig_group = eng._admit_group
+
+        def admit_group(group, p_pad, prefix_id=None):
+            groups.append((len(group), p_pad, prefix_id))
+            return orig_group(group, p_pad, prefix_id)
+
+        eng._admit_group = admit_group
+        waiting = eng.active_rows
+        (n_adm, launches), tr = traced(lambda: counted(eng.admit))
+        del eng._admit_group
+        if n_adm:
+            want = sum(L4 for n, p, _ in groups if n * p <= 256)
+            if launches != want:
+                raise AssertionError(f"admission {groups} launched "
+                                     f"{launches}, want {want}")
+            admissions.append({"tick": tick, "rows": n_adm,
+                               "groups": groups, "launches": launches,
+                               "ms": tr["host_ms"],
+                               "live_rows_waiting": waiting})
+        if eng.prefilling_rows:
+            if tick == 8 and "long" in rid_of:
+                slot = next(s for s, r in eng._prefilling.items()
+                            if r.rid == rid_of["long"])
+                req = eng._prefilling[slot]
+                checks["prefill_subset"] = check_prefill_subset(
+                    eng, cfg, slot, req.prompt[req.consumed:
+                                               req.consumed + C])
+            rows = eng.prefilling_rows
+            waiting = eng.active_rows
+            holds_long = any(r.rid == rid_of.get("long")
+                             for r in eng._prefilling.values())
+            (_, launches), tr = traced(lambda: counted(eng.prefill_step))
+            want = L4 if rows * C <= 256 else 0
+            if launches != want:
+                raise AssertionError(f"prefill chunk over {rows} rows "
+                                     f"launched {launches}, want {want}")
+            if holds_long and launches != L4:
+                raise AssertionError("the long prompt's chunk did not take "
+                                     "the int8 kernel")
+            prefills.append({"tick": tick, "rows": rows, "long": holds_long,
+                             "launches": launches,
+                             "live_rows_waiting": waiting, **tr})
+        if tick == 5:
+            checks["block"] = check_rolling_block(eng, cfg)
+        live = eng.active_rows
+        if live:
+            (events, launches), tr = traced(lambda: counted(eng.decode_step))
+            if launches != L4 * K:
+                raise AssertionError(f"decode chunk launched {launches}, "
+                                     f"want {L4 * K}")
+            emitted = 0
+            for rid, new, _ in events:
+                tokens.setdefault(rid, []).extend(new)
+                emitted += len(new)
+            decodes.append({"tick": tick, "rows": live, "emitted": emitted,
+                            "launches": launches,
+                            "tokens_per_s": live * K / tr["host_ms"] * 1e3,
+                            **tr})
+        tick += 1
+        if tick > 200:
+            raise AssertionError("rolling traffic did not drain")
+    # steady state: all rows live; decode chunks alternately traced and
+    # not, to show what the trace costs the host
+    steady = []
+    for _ in range(eng.max_slots):
+        eng.submit(rolling_request(rng, cfg, 128, 128), max_new_tokens=4 * K)
+    n_adm, launches = counted(eng.admit)
+    if n_adm != eng.max_slots or launches != 0:
+        raise AssertionError(f"steady admission: {n_adm} rows, {launches} "
+                             f"launches")
+    for i in range(4):
+        rows = eng.active_rows
+        if i % 2 == 0:
+            (events, launches), tr = traced(lambda: counted(eng.decode_step))
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            events, launches = counted(eng.decode_step)
+            torch.cuda.synchronize()
+            tr = {"host_ms": (time.perf_counter() - t0) * 1e3}
+        if launches != L4 * K or sum(len(n) for _, n, _ in events) != rows * K:
+            raise AssertionError(f"steady decode chunk: {launches} launches")
+        steady.append({"traced": i % 2 == 0, "rows": rows,
+                       "launches": launches,
+                       "tokens_per_s": rows * K / tr["host_ms"] * 1e3,
+                       **{k: v for k, v in tr.items() if k != "kernels"}})
+    if eng.pending:
+        raise AssertionError("steady requests did not finish")
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    # the readmitted probe: admitted alone both times, it must emit what the
+    # first admission emitted before its eviction
+    old_rid, first = rid_of["probe_first"]
+    again = tokens[rid_of["probe"]]
+    if not first or again[:len(first)] != first:
+        raise AssertionError(f"readmitted probe {again[:len(first)]} vs "
+                             f"first admission {first}")
+    done = [t for rid, t in tokens.items() if rid != old_rid]
+    if any(len(t) != 64 for t in done) or not all(
+            0 <= x < cfg.vocab_size for t in tokens.values() for x in t):
+        raise AssertionError("rolling outputs: wrong lengths or ids")
+
+    def top(rows):
+        return [(k, t, c) for k, t, c in rows[:8]]
+
+    prof_decode = max(decodes, key=lambda d: d["rows"])
+    prof_prefill = next((p for p in prefills if p["long"]), prefills[0])
+    total = {"prefix_fill": prefix_launches,
+             "admit": sum(a["launches"] for a in admissions),
+             "prefill": sum(p["launches"] for p in prefills),
+             "decode": sum(d["launches"] for d in decodes + steady)}
+    res = {"kv_dtype": kv_dtype, **ROLLING, "requests": len(tokens),
+           "ticks": tick, "int8_launches": total,
+           "int8_launches_total": sum(total.values()),
+           "peak_mem_gib": peak / 2 ** 30, "checks": checks,
+           "readmit": {"tokens_compared": len(first)},
+           "admissions": admissions,
+           "prefill_chunks": [{k: v for k, v in p.items() if k != "kernels"}
+                              for p in prefills],
+           "decode_chunks": [{k: v for k, v in d.items() if k != "kernels"}
+                             for d in decodes],
+           "steady_decode_chunks": steady,
+           "top_kernels_decode_chunk": {"tick": prof_decode["tick"],
+                                        "kernels": top(prof_decode[
+                                            "kernels"])},
+           "top_kernels_prefill_chunk": {"tick": prof_prefill["tick"],
+                                         "kernels": top(prof_prefill[
+                                             "kernels"])},
+           "sampled_rows": len(rid_of.get("sampled", []))}
+    return eng, res
+
+
+def rolling_sampling_check(params, cfg, dev, kv_dtype):
+    """Eight temperature-0.8 rows beside eight greedy rows, run twice on
+    fresh engines with the same seed and traffic: the same tokens both
+    times, and every sampled token inside ``filter_logits``' support at its
+    step (recorded from the engine's own filter call)."""
+    from kubetorch_tpu_torch.models import RollingGenerator, rolling
+
+    def run(record):
+        eng = RollingGenerator(params, cfg, kv_dtype=kv_dtype, seed=SEED,
+                               **ROLLING, **ROLLING_SAMPLING)
+        rng = np.random.default_rng(SEED + 20)
+        rids = [eng.submit(rolling_request(rng, cfg, 16, 128),
+                           max_new_tokens=32,
+                           temperature=0.8 if i % 2 else 0.0)
+                for i in range(16)]
+        draws = []
+        if record:
+            plain_filter, plain_sample = rolling.filter_logits, eng._sample
+            filtered = []
+
+            def recording_filter(logits, top_k=None, top_p=None):
+                filtered.append(plain_filter(logits, top_k, top_p))
+                return filtered[-1]
+
+            def recording_sample(logits, temps):
+                tok = plain_sample(logits, temps)
+                draws.append((torch.isfinite(
+                    filtered[-1][torch.arange(len(tok), device=dev), tok])
+                    | (temps <= 0)).all().item())
+                filtered.clear()
+                return tok
+
+            rolling.filter_logits = recording_filter
+            eng._sample = recording_sample
+        try:
+            out = eng.run()
+        finally:
+            if record:
+                rolling.filter_logits = plain_filter
+                del eng._sample
+        del eng
+        torch.cuda.empty_cache()
+        return [out[r] for r in rids], draws
+
+    first, _ = run(False)
+    again, draws = run(True)
+    if again != first:
+        raise AssertionError("sampled rolling run did not reproduce under "
+                             "one seed")
+    if not draws or not all(draws):
+        raise AssertionError(f"sampled tokens outside filter_logits' "
+                             f"support at {draws.count(False)} of "
+                             f"{len(draws)} steps")
+    if not all(0 <= t < cfg.vocab_size for toks in first for t in toks):
+        raise AssertionError("sampled token ids out of range")
+    return {"rows": 16, "sampled_rows": 8, "steps_checked": len(draws),
+            "reproduced": True}
+
+
+def share(x):
+    return "not measured" if x is None else f"{x:.3f}"
+
+
+def report_rolling(res, smi):
+    """The rolling phase's lines, each tagged with the card's name and
+    power limit."""
+    tag = f"[{smi}]"
+    log(f"RollingGenerator kv={res['kv_dtype']} B={res['max_slots']} "
+        f"max_len={res['max_len']}: {res['requests']} requests in "
+        f"{res['ticks']} ticks, int8 launches {res['int8_launches']}, peak "
+        f"{res['peak_mem_gib']:.2f} GiB; checks {json.dumps(res['checks'])};"
+        f" sampling {json.dumps(res['sampling'])} {tag}")
+    for d in res["decode_chunks"]:
+        log(f"  decode  tick {d['tick']:3d}: {d['rows']:2d} rows, "
+            f"{d['emitted']:3d} tokens, host {d['host_ms']:8.2f} ms, device "
+            f"span {d['device_span_ms']:8.2f} ms, busy "
+            f"{d['device_busy_ms']:8.2f} ms, idle share "
+            f"{share(d['idle_share'])}, {d['tokens_per_s']:.1f} tok/s {tag}")
+    for d in res["steady_decode_chunks"]:
+        busy = (f"busy {d['device_busy_ms']:8.2f} ms, idle share "
+                f"{share(d['idle_share'])}" if d["traced"] else "untraced")
+        log(f"  steady decode, {d['rows']} rows: host {d['host_ms']:8.2f} "
+            f"ms, {busy}, {d['tokens_per_s']:.1f} tok/s {tag}")
+    for p in res["prefill_chunks"]:
+        log(f"  prefill tick {p['tick']:3d}: {p['rows']:2d} rows"
+            f"{' (long prompt)' if p['long'] else ''}, host "
+            f"{p['host_ms']:8.2f} ms, device span "
+            f"{p['device_span_ms']:8.2f} ms, busy "
+            f"{p['device_busy_ms']:8.2f} ms, idle share "
+            f"{share(p['idle_share'])}, int8 launches {p['launches']}; "
+            f"{p['live_rows_waiting']} live rows waited {tag}")
+    for a in res["admissions"]:
+        log(f"  admit   tick {a['tick']:3d}: {a['rows']:2d} rows "
+            f"{a['groups']}, {a['ms']:.1f} ms, int8 launches "
+            f"{a['launches']}; {a['live_rows_waiting']} live rows waited "
+            f"{tag}")
+    for what in ("decode", "prefill"):
+        top = res[f"top_kernels_{what}_chunk"]
+        log(f"  top device kernels, {what} chunk at tick {top['tick']} {tag}:")
+        for k, t, c in top["kernels"]:
+            log(f"    {t:9.3f} ms x{c:<5d} {k[:90]}")
+
+
+# --------------------------------------------------------------------------
+# phase 6: Trainer
 # --------------------------------------------------------------------------
 
 def train_flops_per_token(cfg, seq: int) -> float:
@@ -863,14 +1364,26 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     decode_prof = profile_decode(params, cfg, dev, prompts, out_dir)
 
-    # 4. Embedder on the same weights
+    # 4. RollingGenerator at full width and depth, on both grids
+    rolling_rows = []
+    for kv in ("bf16", "int8"):
+        eng, res = run_rolling(params, cfg, dev, kv, out_dir)
+        del eng
+        torch.cuda.empty_cache()
+        res["sampling"] = rolling_sampling_check(params, cfg, dev, kv)
+        gc.collect()
+        torch.cuda.empty_cache()
+        report_rolling(res, smi)
+        rolling_rows.append(res)
+
+    # 5. Embedder on the same weights
     eprompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
                 for n in (1500, 2048)]
     emb_row = run_embedder(unfused_view(params, cfg), cfg, dev, eprompts)
     del params
     torch.cuda.empty_cache()
 
-    # 5. Trainer on Llama-3 1B at full width
+    # 6. Trainer on Llama-3 1B at full width
     train_row = run_training(dev, out_dir)
 
     decode_rows = [r for r in int8_rows if r["B"] == 8]
@@ -886,7 +1399,12 @@ def main() -> int:
         {"name": "int8_matmul", "route": "cuda",
          "source": "kubetorch_tpu_torch/csrc/int8_matmul.cu",
          "replaces": "kubetorch_tpu/ops/quant_matmul.py:45",
-         "launches": gen_rows[0]["int8_launches"],
+         "launches": gen_rows[0]["int8_launches"] + sum(
+             r["int8_launches_total"] for r in rolling_rows),
+         "launches_by_path": {
+             "generate_bf16_kv": gen_rows[0]["int8_launches"],
+             **{f"rolling_{r['kv_dtype']}_kv": r["int8_launches_total"]
+                for r in rolling_rows}},
          "max_abs_err": max(r["max_abs_err"] for r in int8_rows),
          "ms": decode_layer("ms"), "plain_ms": decode_layer("plain_ms"),
          "bound_ms": layer_bound_ms, "bound_by": layer_bound_by,
@@ -918,6 +1436,7 @@ def main() -> int:
               "ptxas": _build.build_logs, "sass": sass,
               "int8_matmul": int8_rows, "flash_forward": flash_rows,
               "generator": gen_rows, "decode_profile": decode_prof,
+              "rolling": rolling_rows,
               "embedder": emb_row,
               "flash_backward": bwd_rows,
               "flash_backward_strided": bwd_strided, "trainer": train_row,
@@ -925,7 +1444,9 @@ def main() -> int:
               "note": ("int8_matmul ms/plain_ms/library_ms/bound_ms: sum "
                        "over one decode layer's four fused projections at "
                        "B=8; flash_forward: causal, B=2 S=2048 Hq=32 Hkv=8 "
-                       "D=128; flash_backward_dq/dkv: causal, B=4 S=2048 "
+                       "D=128; int8_matmul launches: one generate (bf16 "
+                       "KV) plus both rolling runs (launches_by_path); "
+                       "flash_backward_dq/dkv: causal, B=4 S=2048 "
                        "Hq=16 Hkv=8 D=128, plain_ms is the plain backward "
                        "(dq, dk and dv together) and library_ms SDPA's "
                        "backward, which also yields all three; launches "

@@ -8,7 +8,9 @@ from kubetorch_tpu_torch.models import quant
 from kubetorch_tpu_torch.models.quant import quantize_params
 from kubetorch_tpu_torch.models.generate import Generator
 from kubetorch_tpu_torch.models.embed import Embedder
+from kubetorch_tpu_torch.models.rolling import RollingGenerator
 from kubetorch_tpu_torch.models.convert import params_from_numpy
 
 __all__ = ["LlamaConfig", "MoEConfig", "llama", "quant", "quantize_params",
-           "Generator", "Embedder", "params_from_numpy"]
+           "Generator", "Embedder", "RollingGenerator",
+           "params_from_numpy"]

@@ -13,6 +13,9 @@ D % 128 == 0).
 
 The KV cache of :func:`forward_cached` is updated **in place**: the cache
 dict passed in is the one returned, its tensors written at ``write_at``.
+In chunk mode (the rolling generator) the grid cache is read-only and the
+small chunk cache is written in place and returned instead;
+:func:`merge_chunk_into_grid` later writes it into the grid.
 
 Training: :func:`forward` and :func:`hidden_states` run under autograd;
 gradients reach the stacked ``[L, ...]`` leaves through the per-layer
@@ -21,8 +24,7 @@ views. With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
 saves by name (``qkv_q/k/v``, ``attn_out``, ``mlp_out``) and recomputing
 the rest in the backward.
 
-Not ported yet: ``forward_pipeline``, ring attention, MoE, LoRA, and the
-chunk-mode cache paths of the rolling generator.
+Not ported yet: ``forward_pipeline``, ring attention, MoE and LoRA.
 """
 
 from __future__ import annotations
@@ -305,10 +307,16 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
 
 def _kv_quantize(x: torch.Tensor):
     """[B, T, Hkv, D] → (int8 same shape, f32 scale [B, T, Hkv]):
-    symmetric per-head-vector absmax."""
+    symmetric per-head-vector absmax.
+
+    The scale is ``absmax`` times f32(1/127), not ``absmax / 127``: the
+    JAX package quantizes the cache only inside jitted code, where XLA
+    turns the division by a constant into that product (one ulp apart for
+    some values), so the int8 grid matches its engine's bit for bit."""
     x32 = x.float()
     absmax = x32.abs().amax(dim=-1)
-    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    scale = torch.where(absmax > 0, absmax * (1.0 / 127.0),
+                        torch.ones_like(absmax))
     q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale
 
@@ -368,6 +376,137 @@ def _cached_attn(q, ck, cv, mask, cfg: LlamaConfig):
     s = _gqa_scores(qg, ck.float()) * (D ** -0.5)
     p = _masked_softmax(s, mask)
     out = _gqa_values(p, cv.float())
+    return out.to(q.dtype).reshape(B, T, H, D)
+
+
+# --------------------------------------------------------------------------
+# chunk mode (rolling decode and chunked prefill)
+# --------------------------------------------------------------------------
+
+def merge_chunk_into_grid(cache: Dict[str, torch.Tensor],
+                          chunk: Dict[str, torch.Tensor], start, count,
+                          rows=None) -> Dict[str, torch.Tensor]:
+    """Write chunk columns ``[0, count[b])`` into grid slots
+    ``start[b] + col`` of every layer, in place; ``count[b] == 0`` writes
+    nothing to row ``b``, and slots past the grid's end are dropped.
+
+    ``chunk``: stacked ``{"k", "v"}`` of [L, R, K, Hkv, D]; its row ``b``
+    lands in grid row ``rows[b]`` (default ``b``). ``start``/``count``:
+    [R] integers, read on the host (pass host tensors or arrays to keep the
+    card from synchronising). On the int8 grid the written chunk rows are
+    quantized first (:func:`_kv_quantize`), values and scales.
+
+    One indexed write per cache plane covers all layers. The JAX package
+    selects with a one-hot einsum only because a gather or scatter with
+    computed indices serializes on a TPU.
+    """
+    start = torch.as_tensor(start).cpu().long()
+    count = torch.as_tensor(count).cpu().long()
+    K, M = chunk["k"].shape[2], cache["k"].shape[2]
+    col = torch.arange(K)[None, :]
+    valid = (col < count[:, None]) & (start[:, None] + col < M)
+    b, c = valid.nonzero(as_tuple=True)
+    pos = start[b] + c
+    g = b if rows is None else torch.as_tensor(rows).cpu().long()[b]
+    dev = cache["k"].device
+    b, c, g, pos = (t.to(dev) for t in (b, c, g, pos))
+    ek, ev = chunk["k"][:, b, c], chunk["v"][:, b, c]      # [L, N, Hkv, D]
+    if "ks" in cache:
+        ek, sk = _kv_quantize(ek)
+        ev, sv = _kv_quantize(ev)
+        cache["ks"][:, g, pos] = sk
+        cache["vs"][:, g, pos] = sv
+    cache["k"][:, g, pos] = ek.to(cache["k"].dtype)
+    cache["v"][:, g, pos] = ev.to(cache["v"].dtype)
+    return cache
+
+
+def _bf16_products(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a @ b`` may take bf16 operands into f32 products and sums
+    (``torch.bmm(..., out_dtype=torch.float32)``): on the card, for bf16
+    ``a`` and a bf16 or int8 ``b``, both exact in bf16. ``aten::bmm.dtype``
+    has no CPU kernel, so the CPU (and any f32 operand) upcasts instead;
+    the products are the same."""
+    return (a.is_cuda and a.dtype == torch.bfloat16
+            and b.dtype in (torch.bfloat16, torch.int8))
+
+
+def _heads_major(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """[B, M, Hkv, D] → [B*Hkv, M, D] in ``dtype``: one copy that converts
+    and transposes together, into the layout the batched matmul reads."""
+    B, M, Hkv, D = t.shape
+    out = torch.empty((B, Hkv, M, D), dtype=dtype, device=t.device)
+    out.copy_(t.permute(0, 2, 1, 3))
+    return out.view(B * Hkv, M, D)
+
+
+def _scores_f32(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """qg [B,T,Hkv,G,D], k [B,M,Hkv,D] → f32 scores [B,Hkv,G,T,M] of the
+    operands as they stand ("btkgd,bmkd->bkgtm")."""
+    B, T, Hkv, G, D = qg.shape
+    q2 = qg.permute(0, 2, 3, 1, 4).reshape(B * Hkv, G * T, D)
+    if _bf16_products(q2, k):
+        s = torch.bmm(q2, _heads_major(k, torch.bfloat16).transpose(1, 2),
+                      out_dtype=torch.float32)
+    else:
+        s = torch.bmm(q2.float(),
+                      _heads_major(k, torch.float32).transpose(1, 2))
+    return s.view(B, Hkv, G, T, -1)
+
+
+def _values_f32(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """p [B,Hkv,G,T,M], v [B,M,Hkv,D] → f32 [B,T,Hkv,G,D]
+    ("bkgtm,bmkd->btkgd"); an f32 ``p`` reads ``v`` upcast once."""
+    B, Hkv, G, T, M = p.shape
+    p2 = p.reshape(B * Hkv, G * T, M)
+    if _bf16_products(p2, v):
+        o = torch.bmm(p2, _heads_major(v, torch.bfloat16),
+                      out_dtype=torch.float32)
+    else:
+        o = torch.bmm(p2.float(), _heads_major(v, torch.float32))
+    return o.view(B, Hkv, G, T, -1).permute(0, 3, 1, 2, 4)
+
+
+def _cached_attn_merged(q, gk, gv, ek, ev, gmask, emask, cfg: LlamaConfig):
+    """Attention over a read-only grid cache plus a small chunk cache,
+    without their concatenation.
+
+    q: [B,T,H,D]; gk/gv: [B,M,Hkv,D] (grid); ek/ev: [B,K,Hkv,D] (chunk);
+    gmask: [B,T,M]; emask: [B,T,K]. The scores over both sources
+    concatenate, one softmax spans them, and the two value contractions
+    sum. f32 scores and f32 p, as in the JAX package.
+    """
+    B, T, H, D = q.shape
+    Hkv = gk.shape[2]
+    qg = q.reshape(B, T, Hkv, H // Hkv, D)
+    s = torch.cat([_scores_f32(qg, gk), _scores_f32(qg, ek)],
+                  dim=-1) * (D ** -0.5)
+    p = _masked_softmax(s, torch.cat([gmask, emask], dim=-1))
+    M = gk.shape[1]
+    out = _values_f32(p[..., :M], gv) + _values_f32(p[..., M:], ev)
+    return out.to(q.dtype).reshape(B, T, H, D)
+
+
+def _cached_attn_merged_q(q, gk, gv, gks, gvs, ek, ev, gmask, emask,
+                          cfg: LlamaConfig):
+    """:func:`_cached_attn_merged` over a QUANTIZED grid (gk/gv int8
+    [B,M,Hkv,D], scales gks/gvs f32 [B,M,Hkv]) and a bf16 chunk: operands
+    rounded to bf16, f32 sums, and the grid half's scales folded in as in
+    :func:`_cached_attn_q` (after the QK contraction, into p before the PV
+    one)."""
+    B, T, H, D = q.shape
+    Hkv = gk.shape[2]
+    bf16 = torch.bfloat16
+    qg = q.reshape(B, T, Hkv, H // Hkv, D).to(bf16)
+    sg = _scores_f32(qg, gk) * (D ** -0.5)
+    sg = sg * gks.transpose(1, 2)[:, :, None, None, :]       # [B,Hkv,1,1,M]
+    se = _scores_f32(qg, ek.to(bf16)) * (D ** -0.5)
+    p = _masked_softmax(torch.cat([sg, se], dim=-1),
+                        torch.cat([gmask, emask], dim=-1))
+    M = gk.shape[1]
+    pg = (p[..., :M] * gvs.transpose(1, 2)[:, :, None, None, :]).to(bf16)
+    out = (_values_f32(pg, gv)
+           + _values_f32(p[..., M:].to(bf16), ev.to(bf16)))
     return out.to(q.dtype).reshape(B, T, H, D)
 
 
@@ -454,6 +593,36 @@ def _block_cached(x, layer, li, sin, cos, cache, write_at, mask,
     return x + _mlp(x, layer, cfg)
 
 
+def _block_cached_chunk(x, layer, li, sin, cos, grid, chunk, col, gmask,
+                        emask, cfg: LlamaConfig,
+                        grid_rows: Optional[torch.Tensor] = None):
+    """One decoder block in chunk mode: the stacked ``grid`` cache is
+    read-only; this step's K/V land at the uniform column ``col`` of the
+    stacked ``chunk`` cache (in place), and attention spans the layer's
+    grid under ``gmask`` plus its chunk under ``emask``. A bf16 or an int8
+    grid (``"ks"`` present) picks the attention. ``grid_rows`` ([R] index)
+    reads only those grid rows, layer by layer, for a batch of R rows."""
+    dt = cfg.compute_dtype
+    B, T, _ = x.shape
+    H, D = cfg.n_heads, cfg.head_dim
+    q, k, v = _qkv_proj(x, layer, sin, cos, cfg)
+
+    chunk["k"][li, :, col:col + T] = k
+    chunk["v"][li, :, col:col + T] = v
+    g = {name: (t[li] if grid_rows is None
+                else t[li].index_select(0, grid_rows))
+         for name, t in grid.items()}
+    ek, ev = chunk["k"][li], chunk["v"][li]
+    if "ks" in g:
+        attn = _cached_attn_merged_q(q, g["k"], g["v"], g["ks"], g["vs"],
+                                     ek, ev, gmask, emask, cfg)
+    else:
+        attn = _cached_attn_merged(q, g["k"], g["v"], ek, ev, gmask, emask,
+                                   cfg)
+    x = x + _proj(attn.reshape(B, T, H * D), layer, "wo", dt)
+    return x + _mlp(x, layer, cfg)
+
+
 def forward_cached(
     params: Params,
     tokens: torch.Tensor,      # [B, T] int (prefill: padded prompt; decode: 1)
@@ -463,26 +632,46 @@ def forward_cached(
     mask: torch.Tensor,        # [B, T, max_len] bool attention mask
     cfg: LlamaConfig,
     unembed_positions: Optional[torch.Tensor] = None,  # [B]: logits only there
+    chunk: Optional[Dict[str, torch.Tensor]] = None,  # [L, B, K, Hkv, D]
+    chunk_col: Optional[int] = None,                  # uniform chunk column
+    chunk_mask: Optional[torch.Tensor] = None,        # [B, T, K] bool
+    grid_rows: Optional[torch.Tensor] = None,         # [B]: grid rows read
 ):
     """Forward with KV cache → (logits [B, T, V] float32, cache).
 
     The cache is updated in place and returned. ``unembed_positions``
     restricts the unembedding to one position per sequence (logits
     [B, 1, V]): prefill needs only the last real token's logits.
+
+    ``chunk`` mode (rolling decode, chunked prefill): ``cache`` is the
+    read-only grid (``write_at`` unused) and this call's K/V land at the
+    uniform ``chunk_col`` of the stacked chunk cache; attention spans the
+    grid under ``mask`` plus the chunk under ``chunk_mask``. The updated
+    CHUNK is returned, not the grid: the caller merges it
+    (:func:`merge_chunk_into_grid`). ``grid_rows`` runs the batch over
+    those grid rows only (row ``b`` of ``tokens`` reads grid row
+    ``grid_rows[b]``).
     """
     dt = cfg.compute_dtype
     x = params["embedding"][tokens].to(dt)
     sin, cos = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     n_layers = cache["k"].shape[0]
-    block = _block_cached_q if "ks" in cache else _block_cached
-    for li, layer in enumerate(_layer_slices(params["layers"], n_layers)):
-        x = block(x, layer, li, sin, cos, cache, write_at, mask, cfg)
+    layers = _layer_slices(params["layers"], n_layers)
+    if chunk is not None:
+        for li, layer in enumerate(layers):
+            x = _block_cached_chunk(x, layer, li, sin, cos, cache, chunk,
+                                    chunk_col, mask, chunk_mask, cfg,
+                                    grid_rows)
+    else:
+        block = _block_cached_q if "ks" in cache else _block_cached
+        for li, layer in enumerate(layers):
+            x = block(x, layer, li, sin, cos, cache, write_at, mask, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     if unembed_positions is not None:
         x = x[torch.arange(x.shape[0], device=x.device),
               unembed_positions][:, None]
     logits = x @ unembedding(params, cfg)
-    return logits.float(), cache
+    return logits.float(), (cache if chunk is None else chunk)
 
 
 def num_params(cfg: LlamaConfig) -> int:

@@ -358,9 +358,12 @@ def flash_attention(
 ) -> torch.Tensor:
     """Flash attention in the model's [B, S, H, D] layout.
 
-    Shapes that do not tile take the plain attention path, as in the JAX
-    package — callers never need to special-case. Under autograd the
-    forward keeps its lse and the backward runs :func:`flash_backward`.
+    Shapes that do not tile (``flash_tileable``) take the plain attention
+    path, as in the JAX package. On the card, tileable shapes that the
+    kernels do not take yet (f32, D ≠ 128, S or T not a multiple of 64)
+    raise the kernel's error: that coverage is owed (``ROADMAP.md`` Queue
+    2), not routed around. Under autograd the forward keeps its lse and the
+    backward runs :func:`flash_backward`.
     """
     D = q.shape[-1]
     scale = scale if scale is not None else D ** -0.5

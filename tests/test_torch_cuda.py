@@ -292,3 +292,124 @@ def test_dq_kernel_takes_external_delta_and_is_deterministic(cuda_device):
     want = t_fa.flash_backward_plain(q, k, v, out, lse, g, scale=0.1,
                                      causal=True, delta=delta)[0]
     _close(first, want, "dq")
+
+
+# ------------------------------------------ flash coverage owed (ROADMAP)
+# flash_tileable admits these shapes and the kernels do not take them yet:
+# on the card they raise the kernel's error through flash_attention (never
+# the plain path), and no kernel launches.
+
+@pytest.mark.parametrize("dtype,S,D,err,match", [
+    (torch.float32, 2048, 128, TypeError, "bf16"),
+    (torch.bfloat16, 256, 256, ValueError, "D =="),
+    (torch.bfloat16, 32, 128, ValueError, "multiples"),
+], ids=["f32-S2048", "D256", "S32"])
+def test_flash_attention_raises_on_shapes_owed(cuda_device, dtype, S, D,
+                                               err, match):
+    assert t_fa.flash_tileable((1, S, 4, D), (1, S, 2, D))
+    q = torch.zeros(1, S, 4, D, device=cuda_device, dtype=dtype)
+    k = torch.zeros(1, S, 2, D, device=cuda_device, dtype=dtype)
+    before = t_fa.flash_forward.launches
+    with pytest.raises(err, match=match):
+        t_fa.flash_attention(q, k, k, causal=True)
+    assert t_fa.flash_forward.launches == before
+
+
+# ------------------------------------------------- rolling decode (slice 5)
+
+def _small_serving(device):
+    """A small bf16 config whose projections all fit the int8 kernel
+    (N % 128 == 0), int8 weights in the fused serving layout."""
+    from kubetorch_tpu_torch.models import LlamaConfig, quant
+
+    cfg = LlamaConfig.tiny(embed_dim=256, n_heads=4, n_kv_heads=2,
+                           head_dim=64, mlp_dim=512, dtype="bfloat16",
+                           param_dtype="bfloat16")
+    return cfg, quant.init_quantized(0, cfg, fuse=True, device=device)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_rolling_chunks_launch_the_int8_kernel(cuda_device, kv):
+    """A one-row 32-token prefill chunk runs every projection through the
+    int8 kernel (n_layers × 4 launches), and so does every step of a decode
+    chunk (n_layers × 4 × steps_per_call)."""
+    from kubetorch_tpu_torch.models import RollingGenerator
+
+    cfg, params = _small_serving(cuda_device)
+    eng = RollingGenerator(params, cfg, max_slots=4, max_len=128,
+                           steps_per_call=4, prefill_chunk=32, kv_dtype=kv,
+                           device=cuda_device)
+    long = list(range(1, 71))                  # 3 chunks of <= 32 tokens
+    eng.submit(long, max_new_tokens=8)
+    eng.admit()
+    per_chunk = []
+    while eng.prefilling_rows:
+        t_qm.int8_matmul.launches = 0
+        eng.prefill_step()
+        per_chunk.append(t_qm.int8_matmul.launches)
+    assert per_chunk == [cfg.n_layers * 4] * 3
+    t_qm.int8_matmul.launches = 0
+    events = eng.decode_step()
+    assert t_qm.int8_matmul.launches == cfg.n_layers * 4 * 4
+    (rid, toks, done), = events
+    assert len(toks) == 4 and all(0 <= t < cfg.vocab_size for t in toks)
+
+
+def test_int8_grid_merge_on_card_matches_cpu(cuda_device):
+    from kubetorch_tpu_torch.models import llama
+
+    gen = torch.Generator().manual_seed(5)
+    L, B, M, K, Hkv, D = 2, 3, 32, 8, 2, 64
+    grid = {"k": torch.randint(-127, 128, (L, B, M, Hkv, D), generator=gen,
+                               dtype=torch.int8),
+            "v": torch.randint(-127, 128, (L, B, M, Hkv, D), generator=gen,
+                               dtype=torch.int8),
+            "ks": torch.rand(L, B, M, Hkv, generator=gen),
+            "vs": torch.rand(L, B, M, Hkv, generator=gen)}
+    chunk = {n: torch.randn(L, B, K, Hkv, D, generator=gen).to(
+        torch.bfloat16) for n in ("k", "v")}
+    start, count = torch.tensor([3, 20, 9]), torch.tensor([8, 0, 5])
+    on_card = llama.merge_chunk_into_grid(
+        {n: t.to(cuda_device) for n, t in grid.items()},
+        {n: t.to(cuda_device) for n, t in chunk.items()}, start, count)
+    on_cpu = llama.merge_chunk_into_grid(grid, chunk, start, count)
+    for name, t in on_cpu.items():
+        assert torch.equal(on_card[name].cpu(), t), name
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+def test_merged_attention_bf16_products_match_f32_path(cuda_device,
+                                                       quantized):
+    """On the card the grid contractions take bf16 operands into f32
+    products (``torch.bmm(..., out_dtype=torch.float32)``); the CPU upcasts
+    both operands. The same products summed in another order: f32 scores
+    to 1e-5 relative, the bf16 attention output to one bf16 rounding."""
+    from kubetorch_tpu_torch.models import LlamaConfig, llama
+
+    cfg = LlamaConfig.tiny(dtype="bfloat16", param_dtype="bfloat16")
+    gen = torch.Generator().manual_seed(6)
+    Bq, T, H, Hkv, D, M, K = 3, 2, 8, 2, 64, 96, 8
+    q = torch.randn(Bq, T, H, D, generator=gen).to(torch.bfloat16)
+    gk, gv = (torch.randn(Bq, M, Hkv, D, generator=gen).to(torch.bfloat16)
+              for _ in range(2))
+    ek, ev = (torch.randn(Bq, K, Hkv, D, generator=gen).to(torch.bfloat16)
+              for _ in range(2))
+    gmask = (torch.arange(M)[None, None] < torch.tensor([50, 96, 7])[
+        :, None, None]).expand(Bq, T, M)
+    emask = torch.arange(K)[None, None] <= torch.arange(T)[None, :, None]
+    emask = emask.expand(Bq, T, K)
+    qg = q.reshape(Bq, T, Hkv, H // Hkv, D)
+    torch.testing.assert_close(
+        llama._scores_f32(qg.to(cuda_device), gk.to(cuda_device)).cpu(),
+        llama._scores_f32(qg, gk), rtol=1e-5, atol=1e-5)
+    if quantized:
+        (gk, gks), (gv, gvs) = llama._kv_quantize(gk), llama._kv_quantize(gv)
+        args = (q, gk, gv, gks, gvs, ek, ev, gmask, emask)
+        fn = llama._cached_attn_merged_q
+    else:
+        args = (q, gk, gv, ek, ev, gmask, emask)
+        fn = llama._cached_attn_merged
+    got = fn(*(a.to(cuda_device) for a in args), cfg)
+    want = fn(*args, cfg)
+    torch.testing.assert_close(got.cpu().float(), want.float(),
+                               rtol=2 ** -8, atol=2 ** -8)

@@ -34,9 +34,21 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    admission, and the sampled rows reproduce under one seed inside
    ``filter_logits``' support. Each chunk is timed (host, device, idle
    share) under a kernel-only trace;
-5. ``Embedder`` on the same weights: 2 prompts of 1500 and 2048 tokens,
+5. ``DecodeEngine`` over ``RollingGenerator`` at the same rung, with the
+   bf16 and the int8 grid: 40 programs of 128 greedy tokens in two waves
+   of 20 (the second admitted while the first decodes), each a shared
+   256-token system prefix (the engine's ``len:256`` split shares it) plus
+   a user turn of 16-64 tokens; 8 sessions parked through a local store
+   under a temp dir after >= 32 tokens and resumed. Every forward the
+   engine dispatches is logged and the int8 launches must equal what that
+   log implies; parks == restores == 8; every parked blob reads back byte
+   for byte; every program ends with its 128 tokens; one session parked
+   and resumed alone gives the tokens of the same program unparked.
+   Tokens/s, TTFT median and p90, park and restore ms, blob bytes and peak
+   memory go to ``chip_smoke.json``;
+6. ``Embedder`` on the same weights: 2 prompts of 1500 and 2048 tokens,
    which pad to S = 2048 and take the flash kernel in all 32 layers;
-6. ``Trainer`` on Llama-3 1B at full width (the JAX package's largest
+7. ``Trainer`` on Llama-3 1B at full width (the JAX package's largest
    single-chip training fit: remat "dots_no_mlp", cross-entropy chunks of
    4096, AdamW), B = 4, S = 2048 batches from ``lm_batches`` over a random
    corpus: 2 warm-up and 5 timed steps, then 3 steps on fresh batches;
@@ -61,8 +73,11 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -378,7 +393,7 @@ def check_flash_backward(dev, B=4, S=2048, Hq=16, Hkv=8):
 
 
 # --------------------------------------------------------------------------
-# phase 3: Generator, phase 5: Embedder
+# phase 3: Generator, phase 6: Embedder
 # --------------------------------------------------------------------------
 
 @contextlib.contextmanager
@@ -1160,7 +1175,357 @@ def report_rolling(res, smi):
 
 
 # --------------------------------------------------------------------------
-# phase 6: Trainer
+# phase 5: DecodeEngine (server-side serving over the rolling engine)
+# --------------------------------------------------------------------------
+
+ENGINE_PROGRAMS = 40      # in two waves of 20
+ENGINE_NEW = 128          # new tokens a program
+ENGINE_SESSIONS = 8       # programs parked after >= 32 tokens and resumed
+ENGINE_PREFIX = 256       # shared system prefix, split by "len:256"
+
+
+def record_dispatches(inner):
+    """Log every forward dispatch the rolling engine makes (kind, rows,
+    tokens a forward, forwards): the engine's own tick record, from which
+    the int8 launches follow (n_layers × 4 a forward of ≤ 256 tokens)."""
+    log = []
+
+    def wrap(name, shape_of, forwards=lambda *a: 1):
+        plain = getattr(inner, name)
+
+        def recorded(*args):
+            rows, tokens = shape_of(*args)
+            log.append((name, rows, tokens, forwards(*args)))
+            return plain(*args)
+
+        setattr(inner, name, recorded)
+
+    wrap("_prefill_impl", lambda toks, lens, slots: toks.shape)
+    wrap("_prefix_fill_impl", lambda toks, n: toks.shape)
+    wrap("_prefill_px_impl", lambda planes, n, toks, lens, slots: toks.shape)
+    wrap("_prefill_extend_impl", lambda rows, feed, c, f: feed.shape)
+    wrap("_decode_impl", lambda n: (inner.max_slots, 1), lambda n: n)
+    return log
+
+
+def expected_int8_launches(log, L4):
+    return sum(L4 * fwd for _, rows, tokens, fwd in log
+               if rows * tokens <= 256)
+
+
+def leaves_equal(a, b):
+    """Byte equality of two exported trees (CPU tensors)."""
+    from kubetorch_tpu_torch.data_store.device_transfer import tree_flatten
+
+    la, sa = tree_flatten(a)
+    lb, sb = tree_flatten(b)
+    if sa != sb or len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        x, y = x.cpu(), y.cpu()
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if x.numel() and not torch.equal(x.view(torch.uint8),
+                                         y.view(torch.uint8)):
+            return False
+    return True
+
+
+def run_engine(params, cfg, dev, kv_dtype, store_dir):
+    """8B serving through ``DecodeEngine`` over ``RollingGenerator`` (the
+    rolling phase's B = 64 rung): 40 programs of 128 greedy tokens in two
+    waves of 20 (the second admitted while the first decodes), every prompt
+    a shared 256-token system prefix (split by ``len:256``, so the engine
+    shares it) plus a 16-64-token user turn; 8 of them are sessions parked
+    through the local store after >= 32 tokens and resumed. Then one
+    session parked and resumed alone against the same program unparked.
+    Every forward the engine dispatches is logged, and the int8 launches
+    are held to that log."""
+    from kubetorch_tpu_torch.data_store import device_transfer
+    from kubetorch_tpu_torch.models import RollingGenerator
+    from kubetorch_tpu_torch.ops import quant_matmul as qm
+    from kubetorch_tpu_torch.serving import kvpool
+    from kubetorch_tpu_torch.serving.engine import DecodeEngine
+
+    L4 = cfg.n_layers * 4
+    os.environ["KT_LOCAL_STORE"] = store_dir
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    inner = RollingGenerator(params, cfg, kv_dtype=kv_dtype, seed=SEED,
+                             **ROLLING)
+    log = record_dispatches(inner)
+    rng = np.random.default_rng(SEED + 30)
+    system = rng.integers(1, cfg.vocab_size, size=ENGINE_PREFIX).tolist()
+    prompts = [system + rolling_request(rng, cfg, 16, 64)
+               for _ in range(ENGINE_PROGRAMS)]
+    sessions = set(range(0, ENGINE_PROGRAMS, ENGINE_PROGRAMS
+                         // ENGINE_SESSIONS))
+    parks, blobs, restores = [], [], []
+    plain_offload, plain_restore = (kvpool.offload_session,
+                                    kvpool.restore_session)
+
+    def offload(session_id, state, quantized=False):
+        # the blob as it landed is kept and compared with the export after
+        # the traffic (the engine drops it when the session completes)
+        t0, wall0 = time.perf_counter(), time.time()
+        key = plain_offload(session_id, state, quantized)
+        publish_ms = (time.perf_counter() - t0) * 1e3
+        with open(os.path.join(store_dir, key), "rb") as f:
+            blob = f.read()
+        blobs.append({"session": session_id, "publish_ms": publish_ms,
+                      "wall": (wall0, time.time()), "blob": blob,
+                      "state": state})
+        return key
+
+    def restore(session_id):
+        t0 = time.perf_counter()
+        state = plain_restore(session_id)
+        if state is not None:
+            restores.append({"session": session_id, "fetch_ms":
+                             (time.perf_counter() - t0) * 1e3})
+        return state
+
+    plain_import = inner.import_row
+    imports = []
+
+    def import_row(state, block_tokens=None):
+        t0 = time.perf_counter()
+        rid = plain_import(state, block_tokens)
+        torch.cuda.synchronize()
+        imports.append((time.perf_counter() - t0) * 1e3)
+        return rid
+
+    inner.import_row = import_row
+    kvpool.offload_session, kvpool.restore_session = offload, restore
+    eng = DecodeEngine(inner, prefix_split=f"len:{ENGINE_PREFIX}")
+    results = {}
+
+    errors = []
+    first_wave = threading.Event()
+    first_wave_tokens = []      # one entry a token, appended by clients
+
+    def client(i):
+        try:
+            run_program(i)
+        except BaseException as exc:  # surfaced after the join
+            errors.append((i, exc))
+            first_wave.set()
+
+    def run_program(i):
+        sid = f"smoke-{kv_dtype}-{i}" if i in sessions else None
+        prog = {"prompt": prompts[i], "max_new_tokens": ENGINE_NEW}
+        if sid:
+            prog["session_id"] = sid
+        t0 = time.perf_counter()
+        toks, ttft, parked = [], None, False
+        for frame in eng.generate(prog):
+            if frame["tokens"] and ttft is None:
+                ttft = (time.perf_counter() - t0) * 1e3
+            toks += frame["tokens"]
+            if i < ENGINE_PROGRAMS // 2:
+                first_wave_tokens.extend(frame["tokens"])
+                if len(first_wave_tokens) >= ENGINE_PROGRAMS // 2 * 32:
+                    first_wave.set()
+            if sid and not parked and len(toks) >= 32:
+                p0 = time.perf_counter()
+                n = eng.park(sid)
+                parks.append({"session": sid, "rows": n, "at_tokens":
+                              len(toks), "ms": (time.perf_counter() - p0)
+                              * 1e3})
+                parked = True
+        resume_ms = None
+        if sid:
+            r0 = time.perf_counter()
+            for frame in eng.generate(prog):
+                if frame["tokens"] and resume_ms is None:
+                    resume_ms = (time.perf_counter() - r0) * 1e3
+                toks += frame["tokens"]
+        results[i] = {"tokens": toks, "ttft_ms": ttft,
+                      "resume_first_token_ms": resume_ms,
+                      "done_s": time.perf_counter()}
+
+    seq0 = eng._flight.seq if eng._flight is not None else 0
+    qm.int8_matmul.launches = 0
+    t_start = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(ENGINE_PROGRAMS)]
+        for t in threads[:ENGINE_PROGRAMS // 2]:
+            t.start()
+        # the second wave arrives while the first decodes: once the first
+        # has 32 tokens a program on average
+        first_wave.wait(timeout=600)
+        for t in threads[ENGINE_PROGRAMS // 2:]:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall_s = time.perf_counter() - t_start
+        if errors:
+            raise AssertionError(f"program {errors[0][0]} failed") \
+                from errors[0][1]
+        if len(results) != ENGINE_PROGRAMS:
+            raise AssertionError(f"{ENGINE_PROGRAMS - len(results)} "
+                                 f"programs did not finish")
+        with eng._wake:
+            stats = eng.stats()
+        launches = qm.int8_matmul.launches
+        traffic_log = list(log)
+        flight_recs = (eng._flight.snapshot(since_seq=seq0 - 1)
+                       if eng._flight is not None else [])
+
+        # one session parked and resumed alone vs. the program unparked
+        alone = system + rolling_request(rng, cfg, 40, 40)
+        ref = [t for f in eng.generate({"prompt": alone,
+                                        "max_new_tokens": ENGINE_NEW})
+               for t in f["tokens"]]
+        sid = f"smoke-{kv_dtype}-alone"
+        got, parked = [], 0
+        for frame in eng.generate({"prompt": alone, "session_id": sid,
+                                   "max_new_tokens": ENGINE_NEW}):
+            got += frame["tokens"]
+            if len(got) >= 32 and not parked:
+                parked = eng.park(sid)
+        if parked != 1:
+            raise AssertionError("lone session did not park")
+        got += [t for f in eng.generate({"prompt": alone,
+                                         "session_id": sid,
+                                         "max_new_tokens": ENGINE_NEW})
+                for t in f["tokens"]]
+        if got != ref:
+            raise AssertionError("parked+resumed session differs from the "
+                                 "same program unparked")
+        total_launches = qm.int8_matmul.launches
+    finally:
+        eng.close()
+        kvpool.offload_session, kvpool.restore_session = (plain_offload,
+                                                          plain_restore)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    # hard checks
+    want = expected_int8_launches(traffic_log, L4)
+    if launches != want:
+        raise AssertionError(f"engine traffic launched the int8 kernel "
+                             f"{launches} times, its dispatch record "
+                             f"implies {want}")
+    if total_launches != expected_int8_launches(log, L4):
+        raise AssertionError("the lone-session check's int8 launches "
+                             "disagree with its dispatch record")
+    decodes = sum(1 for r in traffic_log if r[0] == "_decode_impl")
+    chunks = sum(1 for r in traffic_log if r[0] == "_prefill_extend_impl")
+    if decodes != stats["steps"] or chunks != stats["prefill_chunks"]:
+        raise AssertionError(f"dispatch record ({decodes} decode, {chunks} "
+                             f"prefill chunks) vs engine stats {stats}")
+    if not (stats["parks"] == stats["restores"] == ENGINE_SESSIONS):
+        raise AssertionError(f"parks {stats['parks']}, restores "
+                             f"{stats['restores']}, want {ENGINE_SESSIONS}")
+    for b in blobs:
+        back = device_transfer.unpack_arrays(b["blob"], template=b["state"])
+        if not leaves_equal(b["state"], back):
+            raise AssertionError(f"the parked blob of {b['session']} did "
+                                 f"not read back byte for byte")
+    if any(len(r["tokens"]) != ENGINE_NEW or not all(
+            0 <= t < cfg.vocab_size for t in r["tokens"])
+            for r in results.values()):
+        raise AssertionError("a program did not end with its full token "
+                             "count")
+    if stats["prefix_cache_hits"] < 1:
+        raise AssertionError("no program hit the shared prefix")
+
+    def pct(xs, q):
+        return float(np.percentile(np.asarray(xs, np.float64), q))
+
+    ttft = [r["ttft_ms"] for r in results.values()]
+    tokens = sum(len(r["tokens"]) for r in results.values())
+    ticks = [r["tick_s"] * 1e3 for r in flight_recs]
+
+    def during_publish(rec):
+        end = rec["t_wall"]
+        return any(a < end and b > end - rec["tick_s"]
+                   for a, b in (x["wall"] for x in blobs))
+
+    busy = [r["tick_s"] * 1e3 for r in flight_recs
+            if r["decode_tokens"] and during_publish(r)]
+    quiet = [r["tick_s"] * 1e3 for r in flight_recs
+             if r["decode_tokens"] and not during_publish(r)]
+    return {
+        "kv_dtype": kv_dtype, **ROLLING, "programs": ENGINE_PROGRAMS,
+        "new_tokens": ENGINE_NEW, "sessions": ENGINE_SESSIONS,
+        "tokens": tokens, "wall_s": wall_s, "tokens_per_s": tokens / wall_s,
+        "ttft_ms_median": pct(ttft, 50), "ttft_ms_p90": pct(ttft, 90),
+        "park_ms": [p["ms"] for p in parks],
+        "parked_at_tokens": [p["at_tokens"] for p in parks],
+        "park_publish_ms": [b["publish_ms"] for b in blobs],
+        "restore_fetch_ms": [r["fetch_ms"] for r in restores],
+        "restore_import_ms": imports,
+        "resume_first_token_ms": [r["resume_first_token_ms"]
+                                  for r in results.values()
+                                  if r["resume_first_token_ms"]],
+        "blob_bytes": [len(b["blob"]) for b in blobs],
+        "export_bytes": [sum(t.numel() * t.element_size() for t in
+                             device_transfer.tree_flatten(b["state"])[0])
+                         for b in blobs],
+        "blobs_read_back_equal": len(blobs),
+        "peak_mem_gib": peak / 2 ** 30,
+        "int8_launches": launches, "int8_launches_total": total_launches,
+        "dispatches": len(traffic_log),
+        "decode_chunks": stats["steps"],
+        "prefill_chunks": stats["prefill_chunks"],
+        "tick_ms_median": pct(ticks, 50) if ticks else None,
+        # decode ticks that overlapped a park's publish, and the others
+        "tick_ms_median_during_publish": pct(busy, 50) if busy else None,
+        "tick_ms_median_otherwise": pct(quiet, 50) if quiet else None,
+        "ticks_during_publish": len(busy),
+        # where the wall goes: the driver's ticks (flight records) split
+        # into dispatch walls (prefill and decode chunks) and the rest
+        "ticks": len(flight_recs),
+        "tick_s_sum": sum(r["tick_s"] for r in flight_recs),
+        "dispatch_s_sum": sum(r["device_s"] for r in flight_recs),
+        "decode_s": stats["device_s"],
+        # the engine's analytic MFU/MBU over its last tick, and the
+        # allocator's bytes at the end of the traffic
+        "last_tick_mfu_mbu": (stats.get("mfu"), stats.get("mbu")),
+        "hbm_used_bytes": stats.get("hbm_used_bytes"),
+        "counters": {k: stats[k] for k in (
+            "parks", "restores", "prefix_cache_hits", "prefixes",
+            "admitted_rows", "prefill_tokens_executed",
+            "prefill_tokens_naive", "prefill_tokens_saved_ratio")},
+        "lone_session_tokens_compared": len(ref),
+    }
+
+
+def report_engine(res, smi):
+    tag = f"[{smi}]"
+    log(f"DecodeEngine kv={res['kv_dtype']} B={res['max_slots']}: "
+        f"{res['programs']} programs x {res['new_tokens']} tokens "
+        f"({res['sessions']} parked and resumed) in {res['wall_s']:.2f} s, "
+        f"{res['tokens_per_s']:.1f} tok/s, TTFT median "
+        f"{res['ttft_ms_median']:.1f} ms p90 {res['ttft_ms_p90']:.1f} ms, "
+        f"{res['decode_chunks']} decode / {res['prefill_chunks']} prefill "
+        f"chunks, int8 launches {res['int8_launches']} (= the dispatch "
+        f"record), peak {res['peak_mem_gib']:.2f} GiB {tag}")
+    def ms(xs):
+        return [round(x, 1) for x in xs]
+
+    log(f"  park ms (park() wall) {ms(res['park_ms'])}, of which publish "
+        f"{ms(res['park_publish_ms'])}; restore fetch ms "
+        f"{ms(res['restore_fetch_ms'])}, import ms "
+        f"{ms(res['restore_import_ms'])}, resume first token ms "
+        f"{ms(res['resume_first_token_ms'])}; blob bytes "
+        f"{res['blob_bytes']} ({res['blobs_read_back_equal']} read back "
+        f"byte for byte) {tag}")
+    log(f"  {res['ticks']} driver ticks: {res['tick_s_sum']:.2f} s, of "
+        f"which dispatch {res['dispatch_s_sum']:.2f} s (decode "
+        f"{res['decode_s']:.2f} s), median tick "
+        f"{res['tick_ms_median']:.1f} ms ({res['ticks_during_publish']} "
+        f"decode ticks beside a park's publish: median "
+        f"{share(res['tick_ms_median_during_publish'])} ms, the others "
+        f"{share(res['tick_ms_median_otherwise'])} ms); counters "
+        f"{res['counters']} {tag}")
+
+
+# --------------------------------------------------------------------------
+# phase 7: Trainer
 # --------------------------------------------------------------------------
 
 def train_flops_per_token(cfg, seq: int) -> float:
@@ -1376,14 +1741,27 @@ def main() -> int:
         report_rolling(res, smi)
         rolling_rows.append(res)
 
-    # 5. Embedder on the same weights
+    # 5. DecodeEngine over the rolling engine, on both grids
+    engine_rows = []
+    store_dir = tempfile.mkdtemp(prefix="kt-smoke-store-")
+    try:
+        for kv in ("bf16", "int8"):
+            res = run_engine(params, cfg, dev, kv, store_dir)
+            gc.collect()
+            torch.cuda.empty_cache()
+            report_engine(res, smi)
+            engine_rows.append(res)
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+    # 6. Embedder on the same weights
     eprompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
                 for n in (1500, 2048)]
     emb_row = run_embedder(unfused_view(params, cfg), cfg, dev, eprompts)
     del params
     torch.cuda.empty_cache()
 
-    # 6. Trainer on Llama-3 1B at full width
+    # 7. Trainer on Llama-3 1B at full width
     train_row = run_training(dev, out_dir)
 
     decode_rows = [r for r in int8_rows if r["B"] == 8]
@@ -1400,11 +1778,13 @@ def main() -> int:
          "source": "kubetorch_tpu_torch/csrc/int8_matmul.cu",
          "replaces": "kubetorch_tpu/ops/quant_matmul.py:45",
          "launches": gen_rows[0]["int8_launches"] + sum(
-             r["int8_launches_total"] for r in rolling_rows),
+             r["int8_launches_total"] for r in rolling_rows + engine_rows),
          "launches_by_path": {
              "generate_bf16_kv": gen_rows[0]["int8_launches"],
              **{f"rolling_{r['kv_dtype']}_kv": r["int8_launches_total"]
-                for r in rolling_rows}},
+                for r in rolling_rows},
+             **{f"decode_engine_{r['kv_dtype']}": r["int8_launches_total"]
+                for r in engine_rows}},
          "max_abs_err": max(r["max_abs_err"] for r in int8_rows),
          "ms": decode_layer("ms"), "plain_ms": decode_layer("plain_ms"),
          "bound_ms": layer_bound_ms, "bound_by": layer_bound_by,
@@ -1436,7 +1816,7 @@ def main() -> int:
               "ptxas": _build.build_logs, "sass": sass,
               "int8_matmul": int8_rows, "flash_forward": flash_rows,
               "generator": gen_rows, "decode_profile": decode_prof,
-              "rolling": rolling_rows,
+              "rolling": rolling_rows, "decode_engine": engine_rows,
               "embedder": emb_row,
               "flash_backward": bwd_rows,
               "flash_backward_strided": bwd_strided, "trainer": train_row,
@@ -1445,7 +1825,8 @@ def main() -> int:
                        "over one decode layer's four fused projections at "
                        "B=8; flash_forward: causal, B=2 S=2048 Hq=32 Hkv=8 "
                        "D=128; int8_matmul launches: one generate (bf16 "
-                       "KV) plus both rolling runs (launches_by_path); "
+                       "KV) plus both rolling runs and both DecodeEngine "
+                       "runs (launches_by_path); "
                        "flash_backward_dq/dkv: causal, B=4 S=2048 "
                        "Hq=16 Hkv=8 D=128, plain_ms is the plain backward "
                        "(dq, dk and dv together) and library_ms SDPA's "

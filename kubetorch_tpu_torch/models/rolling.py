@@ -24,10 +24,14 @@ whole batch waiting for its slowest member (the static
   rows only. A long prompt never stalls the live rows for more than one
   chunk.
 
-Not ported yet (``ROADMAP.md`` Queue 1): ``export_row``/``import_row``,
-``warmup``, ``RollingDecoder``, ``RollingService`` and the devstats
-accounting (item 2), adapters (item 3), speculation (item 4), a mesh
-(item 6).
+A decode-active row exports as a host tree (:meth:`RollingGenerator.
+export_row`, per-block KV leaves) and imports into a free row of any
+engine of the same geometry, of this package or of the JAX package
+(:meth:`RollingGenerator.import_row`); the serving engine parks sessions
+through the store with them (``serving/kvpool.py``).
+
+Not ported yet (``ROADMAP.md`` Queue 1): adapters (item 3), speculation
+(item 4), a mesh (item 6).
 """
 
 from __future__ import annotations
@@ -38,9 +42,11 @@ import numpy as np
 import torch
 
 from kubetorch_tpu_torch._device import check_on_device, resolve_device
+from kubetorch_tpu_torch.exceptions import KVGeometryMismatch
 from kubetorch_tpu_torch.models import llama
 from kubetorch_tpu_torch.models.configs import LlamaConfig
 from kubetorch_tpu_torch.models.generate import filter_logits
+from kubetorch_tpu_torch.observability import devstats
 
 _WINDOW = 64    # recent tokens a repetition penalty looks at
 
@@ -52,7 +58,16 @@ _NOT_PORTED = {
     "lora_slots": "item 3 (LoRA)", "spec_k": "item 4 (speculation)",
     "spec_ngram": "item 4 (speculation)",
     "spec_ema_alpha": "item 4 (speculation)",
+    "adapter_id": "item 3 (LoRA)",
 }
+
+
+def _check_adapter_id(adapter_id: int) -> None:
+    """-1 (the base model) is the only adapter id without LoRA."""
+    if adapter_id != -1:
+        raise NotImplementedError(
+            f"adapter_id={adapter_id}: adapters are not ported yet "
+            f"(ROADMAP.md Queue 1 {_NOT_PORTED['adapter_id']})")
 
 
 def _bucket(n: int, lo: int = 16) -> int:
@@ -210,6 +225,12 @@ class RollingGenerator:
         # prompt tokens run through a prefill forward (each shared prefix
         # counts once, at register_prefix)
         self.prefill_tokens = 0
+        # utilization accounting: every forward dispatch below counts its
+        # analytic FLOPs and bytes here (_count), the numerators of the
+        # serving engine's MFU/MBU
+        self._devstats = devstats.AnalyticCosts()
+        self._devstats_peaks: Any = "unset"
+        self._cost_model()
 
     # ------------------------------------------------------------ public
     @property
@@ -234,15 +255,32 @@ class RollingGenerator:
     def prefilling_rows(self) -> int:
         return len(self._prefilling)
 
+    def devstats_snapshot(self) -> Dict[str, float]:
+        """Cumulative analytic dispatch costs (FLOPs, device-memory bytes,
+        dispatch count): the MFU/MBU numerators. Same surface as
+        ``SimRollingEngine.devstats_snapshot``."""
+        return self._devstats.snapshot()
+
+    def devstats_peaks(self) -> Optional[Tuple[float, float]]:
+        """(peak_flops, peak_bytes_per_s) of the engine's card, or None on
+        the CPU or an unknown card (the serving engine then publishes no
+        MFU/MBU). Cached after the first read."""
+        if self._devstats_peaks == "unset":
+            self._devstats_peaks = devstats.device_peaks(self.device)
+        return self._devstats_peaks
+
     def submit(self, prompt, max_new_tokens: int = 128,
                temperature: float = 0.0, prefix_id: Optional[int] = None,
                stop: Optional[List[List[int]]] = None,
-               repetition_penalty: float = 1.0) -> int:
+               repetition_penalty: float = 1.0,
+               adapter_id: int = -1) -> int:
         """Queue a request; returns its id. ``stop``: token sequences that
         end generation when they appear (included in the output, like
         ``eos_id``), checked on the host per chunk. ``repetition_penalty``
         > 1 discounts tokens seen in the last 64 positions (HF semantics),
-        applied on the device at every step."""
+        applied on the device at every step. ``adapter_id`` must be -1
+        (the base model) until adapters are ported."""
+        _check_adapter_id(adapter_id)
         prompt = list(prompt)
         prefix_len = 0
         if prefix_id is not None:
@@ -376,14 +414,15 @@ class RollingGenerator:
                 out.setdefault(rid, []).extend(toks)
         return out
 
-    def register_prefix(self, tokens) -> int:
+    def register_prefix(self, tokens, adapter_id: int = -1) -> int:
         """Prefill a shared prefix (a system prompt) once; submissions that
         pass the returned ``prefix_id`` prefill only their suffix, on top
         of a copy of the prefix's K/V. On the int8 grid the prefix's cache
         is quantized, by the same writes admission prefills use. (The
         prefix runs at its own padded width, so its K/V, and near-tie
         argmaxes, can differ in the last bits from a full-prompt
-        admission.)"""
+        admission.) ``adapter_id`` must be -1, as in :meth:`submit`."""
+        _check_adapter_id(adapter_id)
         tokens = list(tokens)
         if not tokens:
             raise ValueError("empty prefix")
@@ -403,6 +442,196 @@ class RollingGenerator:
 
     def prefix_len(self, prefix_id: int) -> int:
         return self._prefixes[prefix_id]["len"]
+
+    def export_row(self, rid: int, block_tokens: int = 16
+                   ) -> Dict[str, Any]:
+        """Export a decode-active row as a host tree (CPU tensors): its
+        grid K/V up to the row's depth and what it takes to resume the
+        request elsewhere or later (sampler settings, penalty window,
+        emitted tokens, stop sequences). The serving engine's session park
+        publishes this tree through the store (``serving/kvpool.py``).
+
+        The K/V goes out as per-block leaves (``block_tokens`` positions
+        each, the depth padded to a block count, zeroed past the depth: a
+        freed row keeps its previous occupant's K/V, which must not leave
+        the engine, and zeros keep the padding byte-stable for the delta
+        manifest). On the int8 grid the planes are the grid's ``(q,
+        scale)`` pairs as they are, so a restore is bit-exact. A prefixed
+        row exports its spliced prefix rows too: the tree is
+        self-contained. Leaf names, dtypes and layout are the JAX
+        package's, so either package imports the other's export (the JAX
+        package's speculation leaves are not written here).
+
+        Queued and mid-prefill rows raise ``KeyError`` (their logits are
+        not seeded yet)."""
+        from kubetorch_tpu_torch.serving.kvpool import padded_blocks
+
+        slot = next((s for s, req in self._slots.items() if req.rid == rid),
+                    None)
+        if slot is None:
+            raise KeyError(
+                f"rid {rid} is not decode-active (queued and "
+                f"mid-prefill rows cannot export)")
+        req = self._slots[slot]
+        bt = max(1, int(block_tokens))
+        dpos = int(self._pos[slot])
+        dend = padded_blocks(dpos, bt, self.max_len) * bt
+        if dend > self.max_len:
+            # the grid's tail is not block-aligned: whole blocks only,
+            # which must still cover the row's depth
+            dend = (self.max_len // bt) * bt
+            if dpos > dend:
+                raise ValueError(
+                    f"cannot export a depth-{dpos} row in {bt}-token "
+                    f"blocks on a max_len-{self.max_len} grid — pick a "
+                    f"KT_KV_BLOCK_TOKENS that divides max_len")
+        kv: Dict[str, Dict[str, torch.Tensor]] = {}
+        for name, grid in self.cache.items():
+            plane = grid[:, slot, :dend].to("cpu", copy=True)
+            plane[:, dpos:] = 0
+            kv[name] = {f"{b:05d}": plane[:, b * bt:(b + 1) * bt]
+                        for b in range(dend // bt)}
+
+        def host(values, dtype):
+            return torch.from_numpy(np.asarray(values, dtype))
+
+        return {
+            "kv": kv,
+            "logits": self._logits[slot].to("cpu", copy=True),
+            "win": host(self._win[slot], np.int32),
+            "sampler": host([req.temperature, req.repetition_penalty],
+                            np.float32),
+            "prompt": host(req.prompt, np.int64),
+            "tokens": host(req.tokens, np.int64),
+            "stop_flat": host([t for seq in req.stop for t in seq],
+                              np.int64),
+            "stop_lens": host([len(s) for s in req.stop], np.int64),
+            # [ctx_tokens, emitted, max_new_tokens, adapter_id,
+            #  int8 grid, block_tokens]: the first three are the
+            # engine-agnostic header kvpool.state_summary reads
+            "scalars": host([dpos, len(req.tokens), req.max_new_tokens, -1,
+                             int(self.kv_quantized), bt], np.int64),
+            # the grid geometry the row left: [block_tokens, max_len,
+            # lora_slots]; an importer that differs on any axis refuses
+            "geom": host([bt, self.max_len, 0], np.int64),
+        }
+
+    def _check_geometry(self, state: Dict[str, Any],
+                        expect_block_tokens: Optional[int]) -> None:
+        """Refuse, with :class:`KVGeometryMismatch` naming both geometries
+        and the axis, a state exported from a grid of another block size,
+        ``max_len`` or LoRA slot count. States without a ``geom`` leaf
+        keep the shape checks of :meth:`import_row` only."""
+        geom = state.get("geom")
+        if geom is None:
+            return
+        g = [int(x) for x in np.asarray(geom).reshape(-1)]
+        exported = {"block_tokens": g[0], "max_len": g[1],
+                    "lora_slots": g[2] if len(g) > 2 else 0}
+        importer = {"block_tokens": (int(expect_block_tokens)
+                                     if expect_block_tokens else g[0]),
+                    "max_len": int(self.max_len), "lora_slots": 0}
+        for axis in ("block_tokens", "max_len", "lora_slots"):
+            if exported[axis] != importer[axis]:
+                raise KVGeometryMismatch(
+                    f"cannot import row: exported geometry "
+                    f"(block_tokens={exported['block_tokens']}, "
+                    f"max_len={exported['max_len']}, "
+                    f"lora_slots={exported['lora_slots']}) does not "
+                    f"match importing engine geometry "
+                    f"(block_tokens={importer['block_tokens']}, "
+                    f"max_len={importer['max_len']}, "
+                    f"lora_slots={importer['lora_slots']}): "
+                    f"{axis} mismatch",
+                    axis=axis, exported=exported, importer=importer)
+
+    def import_row(self, state: Dict[str, Any],
+                   block_tokens: Optional[int] = None) -> int:
+        """Splice an exported row (of this package's or the JAX package's
+        ``export_row``; leaves as tensors or numpy arrays) into a free row
+        and resume decoding it. The grid must match: layers, heads, head
+        width and ``kv_dtype``, with the depth inside ``max_len``. Returns
+        the new rid. The sampler's random stream is the engine's, not the
+        row's: a greedy resume is token-identical to an uninterrupted run,
+        a sampled one draws fresh numbers."""
+        from kubetorch_tpu_torch.data_store.device_transfer import (
+            as_host_tensor)
+
+        if "spec" in state:
+            raise NotImplementedError(
+                "state was exported from a speculative engine; speculation "
+                "is not ported yet (ROADMAP.md Queue 1 item 4 "
+                "(speculation))")
+        self._check_geometry(state, block_tokens)
+        if not self._free:
+            raise RuntimeError("no free row to import into")
+        if set(state["kv"]) != set(self.cache):
+            raise ValueError(
+                f"KV planes {sorted(state['kv'])} do not match this "
+                f"grid's {sorted(self.cache)} — kv_dtype mismatch "
+                f"between export and import engines")
+        scalars = [int(x) for x in np.asarray(state["scalars"])]
+        dpos, n_emitted, max_new = scalars[0], scalars[1], scalars[2]
+        _check_adapter_id(scalars[3] if len(scalars) > 3 else -1)
+        planes = {name: torch.cat([as_host_tensor(blocks[b])
+                                   for b in sorted(blocks)], dim=1)
+                  for name, blocks in state["kv"].items()}
+        grid = self.cache["k"]
+        dend = planes["k"].shape[1]
+        if (dend > self.max_len or planes["k"].shape[0] != grid.shape[0]
+                or tuple(planes["k"].shape[2:]) != tuple(grid.shape[3:])):
+            raise ValueError(
+                f"imported KV shape {tuple(planes['k'].shape)} does not "
+                f"fit grid {tuple(grid.shape)} (max_len {self.max_len})")
+        margin = self.steps_per_call
+        if dpos + (max_new - n_emitted) + margin > self.max_len:
+            raise ValueError(
+                f"restored depth {dpos} + remaining budget "
+                f"{max_new - n_emitted} + chunk margin {margin} exceeds "
+                f"max_len {self.max_len}")
+        slot = self._free.pop(0)
+        for name, plane in self.cache.items():
+            plane[:, slot, :dend] = planes[name].to(
+                device=self.device, dtype=plane.dtype)
+        self._logits[slot] = as_host_tensor(state["logits"]).to(
+            device=self.device, dtype=torch.float32)
+        self._pos[slot] = dpos
+        self._active[slot] = True
+        temp, penalty = (float(x) for x in np.asarray(state["sampler"]))
+        rid = self._next_rid
+        self._next_rid += 1
+        req = Request(rid, [int(t) for t in np.asarray(state["prompt"])],
+                      max_new, temp)
+        req.tokens = [int(t) for t in np.asarray(state["tokens"])]
+        req.consumed = len(req.prompt)
+        req.repetition_penalty = penalty
+        stop_flat = [int(t) for t in np.asarray(state["stop_flat"])]
+        stops, at = [], 0
+        for n in (int(x) for x in np.asarray(state["stop_lens"])):
+            stops.append(stop_flat[at:at + n])
+            at += n
+        req.stop = stops
+        req.slot = slot
+        self._temps[slot] = temp
+        self._penalties[slot] = penalty
+        self._win[slot] = np.asarray(state["win"], np.int64)
+        self._slots[slot] = req
+        return rid
+
+    def warmup(self, prompt_buckets=(16, 64, 128),
+               sampling: bool = False) -> None:
+        """Run the serving shapes once before traffic: a one-row and a
+        full-width admission for each prompt bucket, and the decode chunk.
+        Nothing compiles per shape here, but the first call builds the
+        kernels and sizes the allocator's pools. ``sampling`` only matters
+        to a speculative engine (not ported)."""
+        del sampling
+        for p_pad in sorted(set(_bucket(b) for b in prompt_buckets)):
+            for width in sorted({1, self.max_slots}):
+                for _ in range(width):
+                    self.submit([1] * min(p_pad, self.max_len // 2),
+                                max_new_tokens=1)
+                self.run()
 
     # ----------------------------------------------------------- host side
     def _start_chunked(self, req: Request) -> None:
@@ -506,6 +735,43 @@ class RollingGenerator:
         self._free.extend(freed)
 
     # -------------------------------------------------------- device side
+    def _cost_model(self) -> None:
+        """Per-token constants of the analytic dispatch costs: elements of
+        the stacked projection weights (``[L, K, N]`` leaves, scales
+        aside) and of the output projection, the bytes a forward streams (every
+        parameter but the embedding table, of which a forward gathers a
+        few rows, unless it doubles as the output projection), and the
+        K/V bytes of one cached token."""
+        def nbytes(t):
+            return t.numel() * t.element_size()
+
+        layer_mm = sum(t.numel() for k, t in self.params["layers"].items()
+                       if t.ndim >= 3 and not k.endswith("_scale"))
+        head = self.params.get("lm_head", self.params["embedding"])
+        self._layer_mm = layer_mm
+        self._head_mm = head.numel()
+        self._weight_bytes = (
+            sum(nbytes(t) for t in self.params["layers"].values())
+            + nbytes(head)
+            + sum(nbytes(t) for k, t in self.params.items()
+                  if k not in ("layers", "embedding", "lm_head")))
+        self._kv_token_bytes = sum(
+            nbytes(plane[:, 0, 0]) for plane in self.cache.values())
+
+    def _count(self, tokens: int, unembedded: int, attn_pairs: int,
+               kv_tokens_read: int, forwards: int = 1) -> None:
+        """Count one dispatch into the devstats totals: 2 FLOPs per weight
+        element and token (the output projection only for ``unembedded``
+        positions), 4·L·Hq·D per attended (query, key) pair; bytes: the
+        weights once per forward plus the cached K/V read."""
+        cfg = self.cfg
+        flops = (2 * self._layer_mm * tokens + 2 * self._head_mm * unembedded
+                 + 4 * cfg.n_layers * cfg.n_heads * cfg.head_dim
+                 * attn_pairs)
+        self._devstats.count(
+            flops, forwards * self._weight_bytes
+            + self._kv_token_bytes * kv_tokens_read)
+
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
@@ -535,6 +801,7 @@ class RollingGenerator:
             self._own_cache(N, P), 0, mask, self.cfg,
             unembed_positions=lens - 1)
         self._finish_admit(own, out[:, 0], slots, prompt_lens)
+        self._count(N * P, N, N * P * P, N * P)
 
     def _finish_admit(self, own: Dict[str, torch.Tensor],
                       last: torch.Tensor, slots: np.ndarray,
@@ -564,6 +831,7 @@ class RollingGenerator:
             self.params, self._tensor(tokens), positions,
             self._own_cache(1, P), 0, mask, self.cfg,
             unembed_positions=torch.tensor([prefix_len - 1], device=dev))
+        self._count(P, 1, P * P, P)
         return own
 
     @torch.no_grad()
@@ -591,6 +859,7 @@ class RollingGenerator:
             self.params, self._tensor(tokens), positions, own, prefix_len,
             mask, self.cfg, unembed_positions=lens - 1)
         self._finish_admit(own, out[:, 0], slots, prefix_len + prompt_lens)
+        self._count(N * P, N, N * P * width, N * width)
 
     @torch.no_grad()
     def _prefill_extend_impl(self, rows: np.ndarray, feed: np.ndarray,
@@ -634,6 +903,7 @@ class RollingGenerator:
                 out[self._tensor(np.flatnonzero(finals)), 0]
         self._pos[rows] += counts
         self._active[rows[finals]] = True
+        self._count(R * C, R, R * C * (M + C), R * M)
 
     def _sample(self, logits: torch.Tensor,
                 temps: torch.Tensor) -> torch.Tensor:
@@ -704,6 +974,179 @@ class RollingGenerator:
             toks.append(tok)
         counts = np.where(live, n_steps, 0)
         llama.merge_chunk_into_grid(self.cache, chunk, self._pos, counts)
+        # every step runs all rows over the whole grid
+        self._count(B * n_steps, B * n_steps, B * n_steps * (M + n_steps),
+                    B * M * n_steps, forwards=n_steps)
         self._logits = logits
         self._pos = self._pos + counts
         return torch.stack(toks).cpu().numpy()
+
+
+class RollingDecoder:
+    """Remote-facing decode driver: every method takes and returns plain
+    JSON-able values, for a caller that drives the engine one chunk at a
+    time over a call channel (the channel itself belongs to the
+    pod-server path)."""
+
+    def __init__(self, engine: RollingGenerator):
+        self.engine = engine
+
+    def submit(self, prompt, max_new_tokens: int = 128,
+               temperature: float = 0.0,
+               prefix_id: Optional[int] = None,
+               stop: Optional[List[List[int]]] = None,
+               repetition_penalty: float = 1.0,
+               adapter_id: int = -1) -> int:
+        return self.engine.submit(
+            [int(t) for t in prompt], max_new_tokens=max_new_tokens,
+            temperature=temperature, prefix_id=prefix_id, stop=stop,
+            repetition_penalty=repetition_penalty, adapter_id=adapter_id)
+
+    def register_prefix(self, tokens, adapter_id: int = -1) -> int:
+        """Prefill a shared prefix once; the id goes back into
+        :meth:`submit`'s ``prefix_id``."""
+        return int(self.engine.register_prefix(
+            [int(t) for t in tokens], adapter_id=int(adapter_id)))
+
+    def drop_prefix(self, prefix_id: int) -> bool:
+        return bool(self.engine.drop_prefix(int(prefix_id)))
+
+    def step(self) -> Dict[str, Any]:
+        """One engine step. Returns ``{"events": [[rid, tokens, done],
+        ...], "pending": n, "device_ms": t}``; ``device_ms`` is the step's
+        wall time in the engine's process (the step ends on the host's
+        read of the chunk's tokens)."""
+        import time as _time
+
+        t0 = _time.perf_counter()
+        events = self.engine.step()
+        device_ms = (_time.perf_counter() - t0) * 1e3
+        return {"events": [[rid, [int(t) for t in toks], bool(done)]
+                           for rid, toks, done in events],
+                "pending": self.engine.pending,
+                "device_ms": round(device_ms, 3)}
+
+    def pending(self) -> int:
+        """Host bookkeeping only: no device sync."""
+        return self.engine.pending
+
+    def warmup(self, prompt_buckets=(16, 64, 128)) -> bool:
+        self.engine.warmup(tuple(int(b) for b in prompt_buckets))
+        return True
+
+    def stats(self) -> Dict[str, Any]:
+        """Host bookkeeping only: no device sync."""
+        eng = self.engine
+        return {"max_slots": eng.max_slots, "max_len": eng.max_len,
+                "steps_per_call": eng.steps_per_call,
+                "free_slots": eng.free_rows, "queued": eng.queued,
+                "active": eng.active_rows,
+                "prefilling": eng.prefilling_rows}
+
+
+class RollingService:
+    """Thread-safe facade: concurrent callers share one rolling batch.
+
+    Every concurrent :meth:`generate` lands in the same continuous batch;
+    one driver thread advances the engine while any request is pending.
+    :meth:`close` stops and joins the driver.
+    """
+
+    def __init__(self, engine: RollingGenerator):
+        import contextvars
+        import threading
+
+        self.engine = engine
+        self._lock = threading.Lock()
+        self._wake = threading.Condition(self._lock)
+        self._results: Dict[int, List[int]] = {}
+        self._done: Dict[int, bool] = {}
+        self._live: Dict[int, Any] = {}  # rid -> token queue (generate_iter)
+        self._stop = False
+        # copy_context: driver-thread spans keep the submitter's ids
+        self._driver = threading.Thread(
+            target=contextvars.copy_context().run, args=(self._drive,),
+            name="kt-rolling-driver", daemon=True)
+        self._driver.start()
+
+    def generate(self, prompt, max_new_tokens: int = 128,
+                 temperature: float = 0.0, prefix_id: Optional[int] = None,
+                 stop: Optional[List[List[int]]] = None,
+                 timeout: Optional[float] = None,
+                 adapter_id: int = -1) -> List[int]:
+        """Submit and block until this request finishes; other callers'
+        requests decode in the same chunks meanwhile."""
+        import time as _time
+
+        deadline = None if timeout is None else _time.time() + timeout
+        with self._wake:
+            rid = self.engine.submit(prompt, max_new_tokens=max_new_tokens,
+                                     temperature=temperature,
+                                     prefix_id=prefix_id, stop=stop,
+                                     adapter_id=adapter_id)
+            self._results[rid] = []
+            self._done[rid] = False
+            self._wake.notify_all()
+            while not self._done[rid]:
+                rem = None if deadline is None else deadline - _time.time()
+                if rem is not None and rem <= 0:
+                    raise TimeoutError(f"request {rid} timed out")
+                if self._stop:
+                    raise RuntimeError("RollingService closed")
+                self._wake.wait(timeout=rem if rem is not None else 1.0)
+            self._done.pop(rid)
+            return self._results.pop(rid)
+
+    def generate_iter(self, prompt, max_new_tokens: int = 128,
+                      temperature: float = 0.0,
+                      prefix_id: Optional[int] = None,
+                      stop: Optional[List[List[int]]] = None,
+                      adapter_id: int = -1):
+        """Yield tokens as decode chunks land."""
+        import queue as _queue
+
+        live: "_queue.SimpleQueue" = _queue.SimpleQueue()
+        with self._wake:
+            rid = self.engine.submit(prompt, max_new_tokens=max_new_tokens,
+                                     temperature=temperature,
+                                     prefix_id=prefix_id, stop=stop,
+                                     adapter_id=adapter_id)
+            self._live[rid] = live
+            self._wake.notify_all()
+        while True:
+            item = live.get()
+            if item is None:
+                return
+            yield item
+
+    def close(self) -> None:
+        """Stop the driver thread and wait for it."""
+        with self._wake:
+            self._stop = True
+            self._wake.notify_all()
+        self._driver.join(timeout=30.0)
+
+    def _drive(self):
+        while True:
+            with self._wake:
+                while not self._stop and not self.engine.pending:
+                    self._wake.wait()
+                if self._stop:
+                    for live in self._live.values():
+                        live.put(None)
+                    return
+                events = self.engine.step()
+                for rid, toks, done in events:
+                    live = self._live.get(rid)
+                    if live is not None:
+                        for tok in toks:
+                            live.put(tok)
+                        if done:
+                            live.put(None)
+                            del self._live[rid]
+                        continue
+                    self._results.setdefault(rid, []).extend(toks)
+                    if done:
+                        self._done[rid] = True
+                if any(done for _, _, done in events):
+                    self._wake.notify_all()

@@ -413,3 +413,111 @@ def test_merged_attention_bf16_products_match_f32_path(cuda_device,
     want = fn(*args, cfg)
     torch.testing.assert_close(got.cpu().float(), want.float(),
                                rtol=2 ** -8, atol=2 ** -8)
+
+
+# ------------------------------------- serving engine and store (slice 6)
+
+@pytest.fixture
+def local_store(tmp_path, monkeypatch):
+    from kubetorch_tpu_torch.data_store import client
+
+    monkeypatch.setenv("KT_LOCAL_STORE", str(tmp_path / "store"))
+    monkeypatch.delenv("KT_STORE_URL", raising=False)
+    monkeypatch.setattr(client.DataStoreClient, "_default", None)
+    return tmp_path / "store"
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_engine_program_launches_the_int8_kernel_exactly(cuda_device, kv):
+    """A DecodeEngine program of 12 new tokens at 4 a chunk: its admission
+    (one row of 16 padded tokens) launches the int8 kernel n_layers × 4
+    times and each of its three decode chunks n_layers × 4 × 4 times;
+    nothing else launches it."""
+    from kubetorch_tpu_torch.models import RollingGenerator
+    from kubetorch_tpu_torch.serving.engine import DecodeEngine
+
+    cfg, params = _small_serving(cuda_device)
+    inner = RollingGenerator(params, cfg, max_slots=4, max_len=128,
+                             steps_per_call=4, prefill_chunk=32,
+                             kv_dtype=kv, device=cuda_device)
+    eng = DecodeEngine(inner, poll_s=0.002)
+    try:
+        t_qm.int8_matmul.launches = 0
+        frames = list(eng.generate({"prompt": list(range(1, 11)),
+                                    "max_new_tokens": 12}))
+        launches = t_qm.int8_matmul.launches
+    finally:
+        eng.close()
+    assert [len(f["tokens"]) for f in frames] == [4, 4, 4]
+    assert frames[-1]["done"]
+    L4 = cfg.n_layers * 4
+    assert launches == L4 + 3 * L4 * 4
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_store_round_trip_of_a_card_row_is_byte_exact(cuda_device, kv,
+                                                      local_store):
+    """A row exported from a card engine, parked through the store and
+    restored (to the host, and to the card through the pinned placement
+    pipeline) comes back byte for byte; imported into a fresh card engine
+    it continues with the tokens of the uninterrupted run."""
+    from kubetorch_tpu_torch.data_store import device_transfer as dt
+    from kubetorch_tpu_torch.models import RollingGenerator
+    from kubetorch_tpu_torch.serving import kvpool
+
+    cfg, params = _small_serving(cuda_device)
+
+    def engine():
+        return RollingGenerator(params, cfg, max_slots=2, max_len=128,
+                                steps_per_call=4, kv_dtype=kv,
+                                device=cuda_device)
+
+    ref = engine()
+    rid = ref.submit(list(range(3, 30)), max_new_tokens=20)
+    expected = ref.run()[rid]
+    eng = engine()
+    rid = eng.submit(list(range(3, 30)), max_new_tokens=20)
+    first = [t for _ in range(2) for _, toks, _ in eng.step() for t in toks]
+    state = eng.export_row(rid)
+    kvpool.offload_session("card-row", state, quantized=kv == "int8")
+    host = kvpool.restore_session("card-row")
+    key = kvpool.session_key("card-row")
+    on_card = dt.get_arrays(key, template=state, device=cuda_device)
+    want, _ = dt.tree_flatten(state)
+    for got in (dt.tree_flatten(host)[0], dt.tree_flatten(on_card)[0]):
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(g.cpu().view(torch.uint8) if g.numel()
+                               else g.cpu(), w.view(torch.uint8)
+                               if w.numel() else w)
+    assert all(t.device.type == cuda_device.type
+               for t in dt.tree_flatten(on_card)[0])
+    fresh = engine()
+    rid = fresh.import_row(host)
+    rest = [t for t in fresh.run()[rid]]
+    assert first + rest == expected
+
+
+def test_on_card_dequant_matches_host_dequant(cuda_device, local_store):
+    """int8-coded leaves restored onto the card cross as (q, scale) and
+    dequantize there; the result equals the host dequant bit for bit."""
+    from kubetorch_tpu_torch.data_store import codec
+    from kubetorch_tpu_torch.data_store import device_transfer as dt
+
+    gen = torch.Generator().manual_seed(9)
+    q = torch.randint(-127, 128, (48, 96), generator=gen, dtype=torch.int8)
+    scale = torch.rand(48, generator=gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert torch.equal(
+            codec.dequant(q.to(cuda_device), scale.to(cuda_device),
+                          dtype).cpu(),
+            codec.dequant(q, scale, dtype))
+    tree = {"w": torch.randn(64, 96, generator=gen).to(torch.bfloat16),
+            "f": torch.randn(32, 40, generator=gen)}
+    dt.put_arrays("deq", tree, codec="int8")
+    host = dt.get_arrays("deq", template=tree)
+    card = dt.get_arrays("deq", template=tree, device=cuda_device)
+    assert dt.last_restore_stats()["leaves_placed"] == 2
+    for name in tree:
+        assert card[name].device.type == "cuda"
+        assert torch.equal(card[name].cpu(), host[name])
